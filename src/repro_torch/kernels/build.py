@@ -1,0 +1,215 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded
+through :mod:`ctypes`.  Each source compiles to an object in its own
+``nvcc`` process, all started together, and the objects are then linked.
+The library is built at first use, into ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``), and is named by a hash of the
+sources and flags, so an edited source is rebuilt and an unchanged one is
+loaded as it is.
+
+Nothing here runs at import time: the CPU tests import every module of the
+package on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+#: the repository root (src/repro_torch/kernels/build.py -> parents[3])
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+
+#: dtype codes of the C interface (``DtypeCode`` in csrc/common.cuh)
+DTYPE_CODES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
+#: argtypes of every C entry point (pointers and the stream as c_void_p)
+SIGNATURES = {
+    "repro_axpy": (_I, _P, _P, _P, _D, _L, _P),
+    "repro_matmul": (_I, _P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _P),
+    "repro_atax": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_covariance": (_I, _P, _P, _P, _L, _I, _I, _P),
+}
+
+
+@dataclasses.dataclass
+class BuildResult:
+    path: Path
+    seconds: float
+    built: bool              # False when an existing library was reused
+    ptxas: str = ""          # per-kernel register/shared-memory report
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found: the port's CUDA kernels are built on a machine with "
+        "the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def build(*, verbose: bool = False) -> BuildResult:
+    """Compile the kernels into ``BUILD_DIR`` (one ``nvcc`` per source, in
+    parallel) and link.
+
+    ``verbose=True`` adds ``-Xptxas -v`` (which leaves the code as it is)
+    and returns its report; a library that already exists is reused
+    without a report.  Raises
+    :class:`RuntimeError` with the compiler's output when a step fails.
+    """
+    import time
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
+    if lib.exists():
+        return BuildResult(lib, time.perf_counter() - t0, built=False)
+    nvcc = nvcc_path()
+    flags = list(NVCC_FLAGS) + (["-Xptxas", "-v"] if verbose else [])
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs: List[subprocess.Popen] = []
+        objs: List[str] = []
+        for src in SOURCES:
+            obj = os.path.join(tmp, src.replace(".cu", ".o"))
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *flags, "-c", str(CSRC / src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        reports: Dict[str, str] = {}
+        failed = []
+        for src, proc in zip(SOURCES, procs):
+            out, _ = proc.communicate()
+            reports[src] = out
+            if proc.returncode != 0:
+                failed.append(f"--- nvcc {src} (rc={proc.returncode}) ---\n{out}")
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        staged = os.path.join(tmp, lib.name)
+        link = subprocess.run([nvcc, "-shared", "-o", staged, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"kernel link failed (rc={link.returncode}):\n"
+                f"{link.stdout}{link.stderr}")
+        os.replace(staged, lib)
+    ptxas = "".join(f"--- {src} ---\n{out}" for src, out in reports.items())
+    return BuildResult(lib, time.perf_counter() - t0, built=True, ptxas=ptxas)
+
+
+def load(path: Path) -> ctypes.CDLL:
+    cdll = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(cdll, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return cdll
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (once per process)."""
+    return load(build().path)
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_rc(rc: int, kernel: str) -> None:
+    """Raise on a refused launch (the C entry returns cudaGetLastError())."""
+    if rc != 0:
+        raise RuntimeError(
+            f"{kernel} kernel launch failed with CUDA error {rc}")
+
+
+def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
+    """Validate what every kernel takes: CUDA, one device, one supported
+    dtype, contiguous.  Returns the dtype code."""
+    first = tensors[0]
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{kernel} kernel needs CUDA tensors, got {t.device}")
+        if t.device != first.device:
+            raise ValueError(f"{kernel}: tensors on {first.device} and {t.device}")
+        if t.dtype != first.dtype:
+            raise ValueError(f"{kernel}: dtypes {first.dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} kernel needs contiguous tensors")
+    code = DTYPE_CODES.get(first.dtype)
+    if code is None:
+        raise ValueError(
+            f"{kernel} kernel takes {sorted(map(str, DTYPE_CODES))}, "
+            f"got {first.dtype}")
+    return code
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator type of the kernels (and of their plain versions)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel: where it lives, what it replaces, and how
+    many times its wrapper has launched it."""
+
+    name: str
+    source: str          # path in the repository
+    replaces: str        # file:line of the Pallas TPU kernel
+    launches: int = 0
+
+
+def _src(name: str) -> str:
+    return f"src/repro_torch/kernels/csrc/{name}"
+
+
+KERNELS: Dict[str, Kernel] = {
+    "axpy": Kernel("axpy", _src("axpy.cu"), "src/repro/kernels/axpy.py:33"),
+    "matmul": Kernel("matmul", _src("matmul.cu"),
+                     "src/repro/kernels/matmul.py:38"),
+    "atax": Kernel("atax", _src("atax.cu"), "src/repro/kernels/atax.py:40"),
+    "covariance": Kernel("covariance", _src("covariance.cu"),
+                         "src/repro/kernels/covariance.py:30"),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_counts() -> None:
+    for k in KERNELS.values():
+        k.launches = 0

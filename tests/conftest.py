@@ -37,6 +37,11 @@ def run_subprocess(code: str, devices: int = 8, x64: bool = True,
     return proc.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; skips without one")
+
+
 @pytest.fixture(scope="session")
 def subproc():
     return run_subprocess
