@@ -24,7 +24,22 @@ no JAX and nothing of the reference package.
    / warm / resident per-dispatch wall times and the plan counters; one
    fused dispatch (B=8) per job and one tree staging at n=32.  The kernels'
    launch counts are zeroed just before this phase and read just after.
-4. The ``kernels:`` line with those counts, one JSON line of the kernels'
+4. Flash attention: the hand-written kernel against ``ref.attention`` over
+   ``tests/test_kernels.py``'s flash sweep (f32 at 2e-3), GQA, Sq < Skv,
+   head dim 32 and bf16 (at 1e-2, about one bf16 ulp of unit-scale
+   outputs), and at the serving phase's prefill shape, timed beside its
+   plain version, ``scaled_dot_product_attention`` and its bound.
+5. Serving (the second main path): ``ServeEngine`` on the card with
+   Yi-9B at its published width (48 layers, d 4096, 32/4 heads, head dim
+   128; float32 weights drawn from a seeded generator, bf16 compute).
+   ``generate`` for 4 prompts of 512 tokens and 32 new tokens in the
+   ``step``, ``chunk`` and ``host`` modes (identical greedy tokens), then
+   ``generate_many`` for 8 requests of 64-1024 tokens at 0.5 arrivals per
+   step.  The launch counts are zeroed just before and read just after:
+   every prefill must run the flash kernel once per layer.  Then the
+   prefill logits with the kernel against the plain attention, and the
+   prefill / decode / continuous times.
+6. The ``kernels:`` line with the counts, one JSON line of the kernels'
    numbers, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
@@ -35,6 +50,7 @@ measured is also written to ``DIR/chip_smoke.json`` (default
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -70,6 +86,25 @@ LARGE_SHAPES = {
 NS = (1, 8, 32)
 FUSE = 8
 KERNEL_JOBS = ("axpy", "matmul", "atax", "covariance")
+#: the serving phase: Yi-9B at its published width
+SERVE_ARCH = "yi-9b"
+SERVE_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
+SERVE_MANY = dict(requests=8, lo=64, hi=1024, new_tokens=32,
+                  arrival_rate=0.5, batch=8, max_len=1057)
+#: prefill logits, kernel vs plain attention.  In float32 compute the two
+#: differ only in the f32 summation order inside attention: elementwise
+#: 1e-3 on logits of order 1 (f32 keeps 24 bits).  In bf16 compute (the
+#: model's own) that order flips bf16 roundings of the attention output,
+#: and 48 layers of a bf16 residual stream carry them on: the bar is 5 %
+#: of the logits' L2 norm, and the run prints the same distance for the
+#: chunked attention (another f32 order) beside it as the noise floor
+PREFILL_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
+               "bfloat16": dict(rel_l2=5e-2)}
+#: flash attention against ref.attention: tests/test_kernels.py:78-113
+#: in f32; in bf16 both round one f32 result to bf16 once, so about one
+#: ulp of unit-scale outputs (2^-7 = 7.8e-3 at [1, 2))
+FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 
 
 class Checks:
@@ -92,6 +127,344 @@ def nvidia_smi(query):
     if out.returncode != 0 or not out.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def flash_work(q_shape, kv_shape, causal, itemsize):
+    """(bytes, operations) one attention call needs: q, k and v read once,
+    o written once; two products of 2 operations per visible (row,
+    column) pair and head dim, counted with this call's causal mask."""
+    b, hq, sq, d = q_shape
+    hkv, skv = kv_shape[1], kv_shape[2]
+    nbytes = (2 * b * hq * sq * d + 2 * b * hkv * skv * d) * itemsize
+    if causal:
+        pairs = sum(min(max(r + skv - sq + 1, 0), skv) for r in range(sq))
+    else:
+        pairs = sq * skv
+    return nbytes, 4 * b * hq * pairs * d
+
+
+def flash_phase(check, report, time_ms):
+    """The flash kernel against ``ref.attention`` on the card, and its
+    times at the serving phase's prefill shape.  Returns that shape's row
+    of the kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(43)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def rnd(shape, dtype):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dtype).to(dev)
+
+    def compare(qs, ks, dtype, causal, tag):
+        q, k, v = rnd(qs, dtype), rnd(ks, dtype), rnd(ks, dtype)
+        got = ops.attention(q, k, v, causal=causal, impl="kernel")
+        want = ref.attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype).split(".")[1]]
+        g, w = got.double(), want.double()
+        err = (g - w).abs().max().item()
+        ok = (got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(g).all())
+              and bool(((g - w).abs() <= tol["atol"]
+                        + tol["rtol"] * w.abs()).all()))
+        report["kernel_checks"].append(
+            {"kernel": "flash_attention", "tag": tag, "dtype": str(dtype),
+             "shapes": [list(qs), list(ks)], "causal": causal,
+             "max_abs_err": err, "tol": tol, "ok": ok})
+        check(ok, f"flash_attention {tag} q{list(qs)} kv{list(ks)} {dtype} "
+                  f"causal={causal}: max_abs_err {err:.3g} outside {tol}")
+        return (q, k, v), err
+
+    print("== flash attention against ref.attention", flush=True)
+    cases = []
+    for b, h, s, d in ((1, 2, 128, 64), (2, 4, 256, 64), (1, 2, 100, 64),
+                       (1, 8, 128, 128), (1, 1, 384, 80)):   # :78-113
+        cases.append(((b, h, s, d), (b, h, s, d), f32, "sweep"))
+    cases += [((2, 8, 128, 64), (2, 2, 128, 64), f32, "gqa 8:2"),
+              ((1, 32, 200, 128), (1, 4, 200, 128), f32, "gqa 32:4"),
+              ((1, 4, 37, 64), (1, 4, 300, 64), f32, "sq<skv"),
+              ((2, 8, 64, 128), (2, 2, 200, 128), f32, "sq<skv gqa"),
+              ((1, 2, 1, 80), (1, 2, 77, 80), f32, "sq=1"),
+              ((4, 4, 96, 32), (4, 2, 96, 32), f32, "d32"),
+              ((2, 4, 50, 32), (2, 4, 130, 32), f32, "d32 sq<skv"),
+              ((1, 8, 128, 128), (1, 8, 128, 128), bf16, "bf16"),
+              ((1, 1, 384, 80), (1, 1, 384, 80), bf16, "bf16"),
+              ((2, 8, 64, 128), (2, 2, 200, 128), bf16, "bf16 sq<skv gqa"),
+              ((4, 4, 96, 32), (4, 2, 96, 32), bf16, "bf16 d32")]
+    for qs, ks, dtype, tag in cases:
+        for causal in (True, False):
+            _, err = compare(qs, ks, dtype, causal, tag)
+            print(f"  {tag:16s} q{list(qs)} kv{list(ks)} {str(dtype):14s} "
+                  f"causal={causal!s:5s}: max_abs_err {err:.3g}", flush=True)
+
+    b, st = SERVE_STATIC["batch"], SERVE_STATIC["prompt_len"]
+    qs, ks = (b, 32, st, 128), (b, 4, st, 128)      # Yi-9B's prefill
+    (q, k, v), err = compare(qs, ks, bf16, True, "prefill")
+    row = {"kernel": "flash_attention", "tag": "prefill", "dtype": str(bf16),
+           "shapes": [list(qs), list(ks)], "max_abs_err": err,
+           "ms": time_ms(lambda: ops.attention(q, k, v, impl="kernel")),
+           "plain_ms": time_ms(lambda: ref.attention(q, k, v))}
+    try:
+        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    except TypeError:                       # a torch without enable_gqa
+        row["library_ms"] = None
+    nbytes, nops = flash_work(qs, ks, True, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+    row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    report["kernel_times"].append(row)
+    lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
+    print(f"  time flash_attention prefill bf16 q{list(qs)} kv{list(ks)}: "
+          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"sdpa {lib} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
+    return row
+
+
+def device_busy(fn, reps):
+    """Device time over host wall time of ``reps`` calls of ``fn`` in a
+    ``torch.profiler`` trace (after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((us, e.key, e.count))
+    rows.sort(reverse=True)
+    dev_us = sum(r[0] for r in rows) / reps
+    return {"wall_us": wall_us, "device_us": dev_us,
+            "busy_share": dev_us / wall_us,
+            "launches": sum(r[2] for r in rows) // reps,
+            "top": [(k, us / reps, c // reps) for us, k, c in rows[:4]]}
+
+
+def serving_phase(check, report):
+    """Yi-9B at its published width through ``ServeEngine`` on the card.
+    Returns the launch counts of the serving run."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import continuous_trace
+    from repro_torch.models import CallConfig, get, init_params, prefill
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import build_sampling_step
+
+    dev = torch.device("cuda")
+    cfg = get(SERVE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == (48, 4096, 32, 4, 128, 11008, 64000),
+          f"{cfg.name} is not at its published width: {cfg}")
+    print(f"== serving: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_dtype} weights, "
+          f"{cfg.compute_dtype} compute)", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    check(n_params == 8_829_407_232, f"{n_params} parameters")
+    print(f"  init: {n_params} parameters, {param_bytes} B on the card in "
+          f"{init_s:.2f} s", flush=True)
+
+    st = SERVE_STATIC
+    prompts = SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, batch_size=st["batch"],
+        seq_len=st["prompt_len"], seed=0), cfg).batch(0)["tokens"]
+    max_len = st["prompt_len"] + st["new_tokens"] + 1
+    mn = SERVE_MANY
+    reqs, arrivals, lens = continuous_trace(
+        mn["requests"], mn["lo"], mn["hi"], mn["new_tokens"],
+        mn["arrival_rate"], cfg.vocab_size, seed=0)
+    check(max(lens) + mn["new_tokens"] + 1 <= mn["max_len"],
+          f"trace lengths {lens.tolist()} exceed max_len {mn['max_len']}")
+
+    # -- the main path, counted ------------------------------------------
+    outs, stats, wall = {}, {}, {}
+    prefills = 0
+    torch.cuda.synchronize()
+    build.reset_counts()
+    for mode in ("step", "chunk", "host"):
+        eng = ServeEngine(cfg, model, ServeConfig(
+            batch=st["batch"], max_len=max_len, decode_mode=mode,
+            decode_chunk=st["decode_chunk"]))
+        t0 = time.perf_counter()
+        outs[mode] = eng.generate(prompts, st["new_tokens"])
+        torch.cuda.synchronize()
+        wall[mode] = time.perf_counter() - t0
+        stats[mode] = dict(eng.stats)
+        prefills += 1
+    eng = ServeEngine(cfg, model, ServeConfig(batch=mn["batch"],
+                                              max_len=mn["max_len"]))
+    t0 = time.perf_counter()
+    many = eng.generate_many(reqs, arrival_steps=arrivals.tolist())
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    stats["continuous"] = dict(eng.stats)
+    prefills += sum(1 for p, _ in reqs if p.size > 1)
+    launches = build.launch_counts()
+
+    want = cfg.n_layers * prefills
+    check(launches["flash_attention"] == want,
+          f"serving launched flash_attention {launches['flash_attention']} "
+          f"times, not once per layer of each of {prefills} prefills "
+          f"({want})")
+    for mode, out in outs.items():
+        check(out.shape == (st["batch"], st["new_tokens"])
+              and out.min() >= 0 and out.max() < cfg.vocab_size,
+              f"{mode} tokens of shape {out.shape}")
+    for mode in ("chunk", "host"):
+        check(np.array_equal(outs[mode], outs["step"]),
+              f"{mode} mode emitted other greedy tokens than step mode")
+    check(all(o.shape == (mn["new_tokens"],) and o.min() >= 0
+              and o.max() < cfg.vocab_size for o in many),
+          f"continuous outputs {[o.shape for o in many]}")
+    check(stats["continuous"]["requests_retired"] == mn["requests"]
+          and stats["continuous"]["prefill_inserts"] == mn["requests"],
+          f"continuous stats {stats['continuous']}")
+    total = sum(len(o) for o in many)
+    for mode in outs:
+        print(f"  generate {mode:5s}: batch {st['batch']} x "
+              f"{st['prompt_len']} prompt tokens, {st['new_tokens']} new: "
+              f"{wall[mode]:.3f} s wall; stats {stats[mode]}", flush=True)
+    print(f"  step tokens, row 0: {outs['step'][0].tolist()}", flush=True)
+    print(f"  generate_many: {mn['requests']} requests (prompts "
+          f"{lens.tolist()}, arrivals {arrivals.tolist()}), {total} tokens "
+          f"in {many_s:.3f} s = {total / many_s:.1f} tok/s; stats "
+          f"{stats['continuous']}", flush=True)
+
+    # -- prefill with the kernel against the plain attention -------------
+    toks = torch.as_tensor(prompts).to(dev)
+    calls = {impl: CallConfig(attn_impl=impl, attn_chunk=64)
+             for impl in ("kernel", "plain", "chunked")}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill_cmp = {}
+    for tag, c in (("bfloat16", cfg), ("float32", f32)):
+        lg = {impl: prefill(model, c, {"tokens": toks}, max_len,
+                            call)[0].double()
+              for impl, call in calls.items()}
+        torch.cuda.synchronize()
+        lp = lg["plain"]
+        row = {"max_abs_logit": lp.abs().max().item()}
+        for impl in ("kernel", "chunked"):
+            d = lg[impl] - lp
+            row[impl] = {"max_abs_err": d.abs().max().item(),
+                         "rel_l2": (d.norm() / lp.norm()).item()}
+        tol = PREFILL_TOL[tag]
+        d = lg["kernel"] - lp
+        ok = (lg["kernel"].shape == (st["batch"], 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg["kernel"]).all()))
+        if "rel_l2" in tol:
+            ok = ok and row["kernel"]["rel_l2"] <= tol["rel_l2"]
+        else:
+            ok = ok and bool((d.abs() <= tol["atol"]
+                              + tol["rtol"] * lp.abs()).all())
+        check(ok, f"prefill logits in {tag} compute, kernel vs plain "
+                  f"attention: {row['kernel']} outside {tol}")
+        prefill_cmp[tag] = row
+        print(f"  prefill logits, {tag} compute (max |logit| "
+              f"{row['max_abs_logit']:.4g}): kernel vs plain max_abs_err "
+              f"{row['kernel']['max_abs_err']:.4g}, relative L2 "
+              f"{row['kernel']['rel_l2']:.4g}; chunked vs plain (another "
+              f"f32 summation order) {row['chunked']['max_abs_err']:.4g}, "
+              f"{row['chunked']['rel_l2']:.4g}; bar {tol}", flush=True)
+        del lg, lp, d
+
+    def prefill_s(impl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, cfg, {"tokens": toks}, max_len, calls[impl])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    runs = {"kernel": [], "plain": []}
+    for impl in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        runs[impl].append(prefill_s(impl))
+    prefill_ms = {impl: statistics.median(v) * 1e3
+                  for impl, v in runs.items()}
+    n_steps, n_prof = 16, 3
+    _, cache = prefill(model, cfg, {"tokens": toks},
+                       st["prompt_len"] + n_steps + n_prof + 4,
+                       calls["kernel"])
+    step = build_sampling_step(model, cfg, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = toks[:, -1:]
+    for _ in range(2):
+        tok, cache = step(cache, tok, gen)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(n_steps):
+        tok, cache = step(cache, tok, gen)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / n_steps
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): kernel "
+          f"{prefill_ms['kernel']:.3f} ms, plain {prefill_ms['plain']:.3f} "
+          f"ms (median of 3, host clock); decode step (batch "
+          f"{st['batch']}, step mode): {decode_ms:.3f} ms per step; peak "
+          f"device memory {peak} B", flush=True)
+
+    # -- where a prefill's and a decode step's time goes -----------------
+    def step_once():
+        nonlocal tok, cache
+        tok, cache = step(cache, tok, gen)
+
+    busy = {"prefill": device_busy(
+                lambda: prefill(model, cfg, {"tokens": toks}, max_len,
+                                calls["kernel"]), 1),
+            "decode_step": device_busy(step_once, n_prof)}
+    for what, b in busy.items():
+        print(f"  profile {what}: wall {b['wall_us']:.1f} us (profiled), "
+              f"device {b['device_us']:.1f} us, busy share "
+              f"{b['busy_share']:.3f}, {b['launches']} device ops; top "
+              + "; ".join(f"{k[:40]} {us:.1f} us x{c}"
+                          for k, us, c in b["top"]), flush=True)
+    report["serving"] = {
+        "arch": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
+        "init_s": init_s, "static": SERVE_STATIC, "continuous": SERVE_MANY,
+        "prompt_lens": lens.tolist(), "arrivals": arrivals.tolist(),
+        "wall_s": wall, "continuous_s": many_s,
+        "continuous_tok_per_s": total / many_s, "stats": stats,
+        "prefill_ms": prefill_ms, "prefill_runs_s": runs,
+        "decode_ms_per_step": decode_ms,
+        "prefill_logits": prefill_cmp, "busy": busy,
+        "max_memory_allocated": peak, "launches": launches,
+        "prefills": prefills}
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -502,14 +875,21 @@ def main() -> int:
         del rt
     torch.cuda.empty_cache()
 
-    # -- 4. what the main path launched, and the result lines ----------------
+    # -- 4-5. flash attention, then the serving path ----------------------
+    flash_row = flash_phase(check, report, time_ms)
+    torch.cuda.empty_cache()
+    serve_launches = serving_phase(check, report)
+
+    # -- 6. what the main paths launched, and the result lines ---------------
+    launches["flash_attention"] = serve_launches["flash_attention"]
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     for name in KERNEL_JOBS:
         check(launches[name] > 0,
               f"the offload phase never launched the {name} kernel")
     line = []
-    for name in KERNEL_JOBS:
-        k, row = build.KERNELS[name], main_rows[name]
+    for name in KERNEL_JOBS + ("flash_attention",):
+        k = build.KERNELS[name]
+        row = flash_row if name == "flash_attention" else main_rows[name]
         line.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],

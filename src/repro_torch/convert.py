@@ -1,14 +1,15 @@
 """Carrying state across from the reference package.
 
 This system has no trained weights: what ``repro`` and ``repro_torch``
-share is the job instances and the machine constants.  Both helpers take
-plain data (numpy arrays, dicts), so nothing here imports the reference.
+share is the job instances, the machine constants and the models' random
+weights.  Every helper takes plain data (numpy arrays, dicts), so nothing
+here imports the reference.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +17,7 @@ import torch
 from repro_torch.core import broadcast as bc
 from repro_torch.core.jobs import PaperJob
 from repro_torch.core.params import OccamyParams
+from repro_torch.models.config import ModelConfig
 
 
 def operands_to_clusters(ops: Mapping[str, np.ndarray], job: PaperJob,
@@ -48,3 +50,55 @@ def occamy_params_from_dict(d: Mapping[str, Any]) -> OccamyParams:
             f"OccamyParams fields differ: unknown {sorted(set(d) - names)}, "
             f"missing {sorted(names - set(d))}")
     return OccamyParams(**dict(d))
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Dict[Tuple[str, ...], np.ndarray]:
+    out: Dict[Tuple[str, ...], np.ndarray] = {}
+    for key, node in tree.items():
+        path = prefix + (str(key),)
+        if isinstance(node, Mapping):
+            out.update(_leaves(node, path))
+        else:
+            out[path] = np.asarray(node)
+    return out
+
+
+def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
+                            ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from the reference's ``init_params`` tree
+    as numpy arrays (``jax.device_get``), so both packages compute with the
+    same weights.
+
+    The reference stacks every layer leaf over a leading L axis
+    (``layers/attn/wq`` is (L, d, q)); the port has one module per layer
+    (``layers.<i>.attn.wq``).  Unknown or missing leaves, and leaves of
+    another shape, raise.  Load the result with
+    ``model.load_state_dict(sd, assign=True)``.
+    """
+    from repro_torch.models.model import Transformer   # avoid cycle
+    want = Transformer(cfg, device="meta").state_dict()
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, arr: np.ndarray) -> None:
+        if name not in want:
+            raise ValueError(f"unknown parameter {name!r} for {cfg.name}")
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {arr.shape}, the port's is "
+                             f"{tuple(want[name].shape)}")
+        out[name] = torch.from_numpy(np.array(arr, order="C")).to(
+            want[name].dtype)
+
+    for path, arr in _leaves(tree).items():
+        if path[0] == "layers":
+            if arr.ndim < 1 or arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'/'.join(path)}: shape {arr.shape} is "
+                                 f"not stacked over {cfg.n_layers} layers")
+            for i in range(cfg.n_layers):
+                put(".".join(("layers", str(i)) + path[1:]), arr[i])
+        else:
+            put(".".join(path), arr)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise ValueError(f"missing parameters for {cfg.name}: {missing}")
+    return out

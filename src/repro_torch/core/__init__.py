@@ -10,6 +10,7 @@ from repro_torch.core.broadcast import (
     TreeStager,
     build_tree,
     depth_bound,
+    place_pytree,
     tree_from_request,
 )
 from repro_torch.core.completion import CompletionUnit
@@ -102,8 +103,8 @@ __all__ = [
     "decode_match", "depth_bound", "encode_cluster_selection",
     "encode_cluster_selection_multi", "fabric_makespan_model",
     "forward_model", "make_instances", "model_error", "offload_overhead",
-    "optimal_clusters", "predict", "predict_recovery", "predict_total",
-    "predict_total_v2", "should_offload", "simulate", "simulate_fabric",
+    "optimal_clusters", "place_pytree", "predict", "predict_recovery",
+    "predict_total", "predict_total_v2", "should_offload", "simulate", "simulate_fabric",
     "simulate_forward", "simulate_staging", "speedups", "stack_instances",
     "staging_model", "staging_model_error", "tree_from_request", "validate",
 ]

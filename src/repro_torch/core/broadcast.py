@@ -28,7 +28,9 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import (
+    Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple,
+)
 
 import numpy as np
 import torch
@@ -316,3 +318,27 @@ def placement_bytes(arr: np.ndarray, placement: Placement) -> int:
     shard = placement.shard_shape(arr.shape)
     per = int(np.prod(shard, dtype=np.int64)) * arr.dtype.itemsize
     return per * placement.n
+
+
+def place_pytree(tree: Any, placements: Any, stager: TreeStager,
+                 *, reshard: bool = False, stats: Optional[Any] = None) -> Any:
+    """Place a nested mapping of host arrays, routing replicated leaves
+    through the tree.
+
+    ``placements`` has ``tree``'s structure with one :class:`Placement` per
+    leaf.  Sharded leaves cross the host link once regardless of n (each
+    cluster row receives only its block), so they take the direct path;
+    replicated leaves — the O(n) host-link offenders — go through
+    :meth:`TreeStager.put_replicated`.  ``stats`` counts both classes, as
+    the reference's ``place_pytree`` does.  Every leaf comes back
+    cluster-major: ``(n, *shard_shape)``.
+    """
+    if isinstance(tree, Mapping):
+        return {k: place_pytree(v, placements[k], stager, reshard=reshard,
+                                stats=stats) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if is_replicated(placements):
+        return stager.put_replicated(arr, reshard=reshard, stats=stats)
+    if stats is not None:
+        stats.h2d_bytes += placement_bytes(arr, placements)
+    return upload(placements.to_clusters(arr), stager.device)

@@ -29,7 +29,8 @@ from typing import Dict, List
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu")
+SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu",
+           "flash_attention.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -50,6 +51,8 @@ SIGNATURES = {
     "repro_matmul": (_I, _P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _P),
     "repro_atax": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _P),
     "repro_covariance": (_I, _P, _P, _P, _L, _I, _I, _P),
+    "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
 }
 
 
@@ -203,6 +206,8 @@ KERNELS: Dict[str, Kernel] = {
     "atax": Kernel("atax", _src("atax.cu"), "src/repro/kernels/atax.py:40"),
     "covariance": Kernel("covariance", _src("covariance.cu"),
                          "src/repro/kernels/covariance.py:30"),
+    "flash_attention": Kernel("flash_attention", _src("flash_attention.cu"),
+                              "src/repro/kernels/flash_attention.py:96"),
 }
 
 

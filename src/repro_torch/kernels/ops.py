@@ -17,6 +17,9 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.atax import atax as _atax_kernel
 from repro_torch.kernels.axpy import axpy as _axpy_kernel
 from repro_torch.kernels.covariance import covariance as _cov_kernel
+from repro_torch.kernels.flash_attention import (
+    flash_attention as _flash_kernel,
+)
 from repro_torch.kernels.matmul import matmul as _matmul_kernel
 
 IMPLS = ("kernel", "plain", "auto")
@@ -59,3 +62,18 @@ def covariance(data, *, impl: str = "auto") -> torch.Tensor:
     if _resolve(impl, data) == "kernel":
         return _cov_kernel(data.contiguous())
     return ref.covariance(data)
+
+
+def attention(q, k, v, *, causal: bool = True,
+              impl: str = "auto") -> torch.Tensor:
+    """Multi-head attention with GQA support: k/v may have fewer heads than
+    q (q heads must be a multiple).  The kernel indexes KV head
+    ``h // rep`` and repeats nothing; the plain version repeats the heads.
+    The causal mask is aligned bottom-right (``kernels.ref.attention``)."""
+    hq, hkv = q.shape[1], k.shape[1]
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"GQA heads {hq} not a multiple of {hkv}")
+    if _resolve(impl, q) == "kernel":
+        return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
+                             causal=causal)
+    return ref.attention(q, k, v, causal=causal)

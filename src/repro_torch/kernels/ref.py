@@ -38,3 +38,27 @@ def covariance(data: torch.Tensor) -> torch.Tensor:
     centred = d - d.mean(dim=-1, keepdim=True)
     return (torch.matmul(centred, centred.mT) / (data.shape[-1] - 1)
             ).to(data.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True) -> torch.Tensor:
+    """Naive O(S²) attention, f32 accumulation — the flash kernel's plain
+    version.  q (B, Hq, Sq, D); k, v (B, Hkv, Skv, D) with Hq a multiple of
+    Hkv (GQA: the KV heads are repeated here; the kernel indexes them).
+    The causal mask is aligned bottom-right (``col <= row + Skv - Sq``), as
+    ``repro.kernels.ref.attention`` has it."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if k.shape[1] != h:
+        rep = h // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(
+            diagonal=skv - sq)
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)).to(q.dtype)

@@ -1,0 +1,243 @@
+"""Attention: GQA + RoPE (+ QKV bias) — twin of ``repro.models.attention``.
+
+Four implementations behind one switch (``impl``):
+  * "plain"   — dense masked attention written here (the twin of "xla");
+  * "chunked" — online softmax over KV chunks in plain torch: O(S·chunk)
+                memory;
+  * "kernel"  — the hand-written CUDA flash-attention kernel through
+                ``kernels.ops.attention`` (the twin of "pallas"); CUDA
+                tensors only, and it raises for a prefix-LM mask;
+  * "auto"    — "kernel" for a CUDA tensor, "plain" for a CPU one.
+The reference's "stub" (the flash-substitution measurement) comes with
+``launch/flashsub.py``; MLA comes with the MLA family.
+
+Decode (one query token against a cache) is a separate path in plain
+torch, on the card too, as the reference keeps it always-XLA: it is a
+matrix-vector product per head, bound by streaming the cache.
+
+Parameters ``p`` are one layer's attention weights as a mapping
+(``p["wq"]`` …), the reference's tree; projections cast each weight to the
+activations' dtype at use.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope
+
+NEG_INF = -1e30
+IMPLS = ("plain", "chunked", "kernel", "auto")
+
+Params = Mapping[str, torch.Tensor]
+
+
+def resolve_impl(impl: str, t: torch.Tensor) -> str:
+    """``impl`` with "auto" decided by where ``t`` lies."""
+    if impl == "stub":
+        raise NotImplementedError(
+            "attn_impl='stub' comes with launch/flashsub.py "
+            "(ROADMAP.md Queue 1 item 15)")
+    if impl not in IMPLS:
+        raise ValueError(f"attn impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        return "kernel" if t.is_cuda else "plain"
+    return impl
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1).transpose(1, 2)     # (B, H, S, d)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _mask(sq: int, skv: int, prefix_len: int = 0,
+          device: torch.device | str | None = None) -> torch.Tensor:
+    """Causal mask, optionally bidirectional over the first `prefix_len`
+    positions (PaliGemma prefix-LM)."""
+    rows = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    cols = torch.arange(skv, device=device)[None, :]
+    allowed = cols <= rows
+    if prefix_len > 0:
+        allowed = allowed | (cols < prefix_len)
+    return allowed
+
+
+def _repeat_kv(k: torch.Tensor, v: torch.Tensor,
+               hq: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    hkv = k.shape[1]
+    if hq == hkv:
+        return k, v
+    return (k.repeat_interleave(hq // hkv, dim=1),
+            v.repeat_interleave(hq // hkv, dim=1))
+
+
+def _plain_attention(q, k, v, mask) -> torch.Tensor:
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = s / (d ** 0.5)
+    s = s.masked_fill(~mask[None, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
+def _chunked_attention(q, k, v, *, prefix_len: int,
+                       chunk: int = 512) -> torch.Tensor:
+    """Online softmax over KV chunks (flash attention in plain torch).
+
+    k and v may have different head dims."""
+    b, h, sq, d = q.shape
+    dv = v.shape[-1]
+    skv = k.shape[2]
+    q32 = q.to(torch.float32) / (d ** 0.5)
+    rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for start in range(0, skv, chunk):
+        kb = k[:, :, start:start + chunk].to(torch.float32)
+        vb = v[:, :, start:start + chunk].to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
+        cols = start + torch.arange(kb.shape[2], device=q.device)[None, :]
+        allowed = cols <= rows
+        if prefix_len > 0:
+            allowed = allowed | (cols < prefix_len)
+        s = s.masked_fill(~allowed[None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l).to(q.dtype)
+
+
+def multihead_attention(
+    q: torch.Tensor,          # (B, Hq, Sq, d)
+    k: torch.Tensor,          # (B, Hkv, Skv, d)
+    v: torch.Tensor,
+    *,
+    impl: str = "auto",
+    prefix_len: int = 0,
+    chunk: int = 512,
+) -> torch.Tensor:
+    impl = resolve_impl(impl, q)
+    if impl == "kernel":
+        if prefix_len:
+            raise NotImplementedError("prefix-LM uses plain/chunked")
+        # the kernel indexes KV head h // rep: nothing is repeated
+        return kops.attention(q, k, v, causal=True, impl="kernel")
+    k, v = _repeat_kv(k, v, q.shape[1])
+    if impl == "chunked":
+        return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk)
+    mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)
+    return _plain_attention(q, k, v, mask)
+
+
+# ---------------------------------------------------------------------------
+# GQA block (dense family)
+# ---------------------------------------------------------------------------
+
+
+def gqa_project(x, p: Params, cfg: ModelConfig, positions):
+    """x -> rotated q, k, v with head split.  p: this layer's attn params."""
+    dt = x.dtype
+    q = torch.matmul(x, p["wq"].to(dt))
+    k = torch.matmul(x, p["wk"].to(dt))
+    v = torch.matmul(x, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = _split_heads(q, cfg.n_heads)
+    k = _split_heads(k, cfg.n_kv_heads)
+    v = _split_heads(v, cfg.n_kv_heads)
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, positions[:, None], cfg.rope_theta)
+        k = apply_rope(k, positions[:, None], cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_attention(x, p: Params, cfg: ModelConfig, positions, *,
+                  impl: str = "auto", prefix_len: int = 0,
+                  chunk: int = 512) -> torch.Tensor:
+    q, k, v = gqa_project(x, p, cfg, positions)
+    o = multihead_attention(q, k, v, impl=impl, prefix_len=prefix_len,
+                            chunk=chunk)
+    return torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
+
+
+def _decode_attend(q, kk, vv, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
+    """One query token per row against the whole cache, in f32.
+
+    q (B, Hq, 1, d); kk, vv (B, Hkv, Smax, d); valid broadcastable to
+    (B, 1, 1, Smax).  Query heads are grouped by their KV head (the same
+    products as repeating the KV heads, without the copy)."""
+    b, hq, _, d = q.shape
+    hkv = kk.shape[1]
+    qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bgrd,bgkd->bgrk", qg, kk.to(torch.float32))
+    s = s / (cfg.head_dim ** 0.5)
+    s = s.masked_fill(~valid, NEG_INF)
+    o = torch.einsum("bgrk,bgkd->bgrd", torch.softmax(s, dim=-1),
+                     vv.to(torch.float32))
+    return o.reshape(b, hq, 1, d).to(dtype)
+
+
+def gqa_decode(x, p: Params, cfg: ModelConfig, k_cache, v_cache, pos: int):
+    """One-token decode: write the caches at `pos`, attend over
+    cache[:pos+1].
+
+    k_cache/v_cache: (B, Smax, Hkv*dh), updated in place (the reference
+    returns new arrays; the port writes the one cell).  Returns
+    (out, k_cache, v_cache)."""
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k, v = gqa_project(x, p, cfg, positions)            # (B,H,1,d)
+    k_cache[:, pos] = _merge_heads(k)[:, 0].to(k_cache.dtype)
+    v_cache[:, pos] = _merge_heads(v)[:, 0].to(v_cache.dtype)
+    # columns past pos are masked to exactly 0 weight in the reference, so
+    # attending over the live prefix alone computes the same function
+    kk = _split_heads(k_cache[:, :pos + 1], cfg.n_kv_heads)
+    vv = _split_heads(v_cache[:, :pos + 1], cfg.n_kv_heads)
+    valid = torch.ones((1, 1, 1, pos + 1), dtype=torch.bool, device=x.device)
+    o = _decode_attend(q, kk, vv, valid, cfg, x.dtype)
+    out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
+    return out, k_cache, v_cache
+
+
+def gqa_decode_ragged(x, p: Params, cfg: ModelConfig, k_cache, v_cache,
+                      pos_b: torch.Tensor):
+    """One-token decode with a *per-row* position (continuous batching).
+
+    ``pos_b``: (B,) integer tensor — row b's cache is written at
+    ``pos_b[b]`` and attended over ``cache[b, :pos_b[b]+1]``; RoPE uses each
+    row's own position.  k_cache/v_cache: (B, Smax, Hkv*dh), updated in
+    place."""
+    b = x.shape[0]
+    positions = pos_b[:, None]                              # (B, 1)
+    q, k, v = gqa_project(x, p, cfg, positions)             # (B,H,1,d)
+    rows = torch.arange(b, device=x.device)
+    idx = pos_b.to(torch.long)
+    k_cache[rows, idx] = _merge_heads(k)[:, 0].to(k_cache.dtype)
+    v_cache[rows, idx] = _merge_heads(v)[:, 0].to(v_cache.dtype)
+    kk = _split_heads(k_cache, cfg.n_kv_heads)              # (B,Hkv,Smax,d)
+    vv = _split_heads(v_cache, cfg.n_kv_heads)
+    valid = (torch.arange(k_cache.shape[1], device=x.device)[None, None,
+                                                             None, :]
+             <= idx[:, None, None, None])
+    o = _decode_attend(q, kk, vv, valid, cfg, x.dtype)
+    out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
+    return out, k_cache, v_cache
