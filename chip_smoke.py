@@ -39,7 +39,23 @@ no JAX and nothing of the reference package.
    every prefill must run the flash kernel once per layer.  Then the
    prefill logits with the kernel against the plain attention, and the
    prefill / decode / continuous times.
-6. The ``kernels:`` line with the counts, one JSON line of the kernels'
+6. SSM scan: the hand-written kernel against ``ref.ssm_scan`` over
+   ``tests/test_kernels.py``'s scan sweep (f32 at 2e-4), S = 1, N = 32 and
+   64, a D that leaves a channel group short, a given ``h0`` with the
+   final state returned, and bf16 (at 1e-2, about one bf16 ulp); then at
+   the prefill chunk of falcon-mamba-7b (4 × 256 tokens, D 8192, N 16,
+   f32), timed beside its plain version and its bound.
+7. Serving falcon-mamba-7b (the third main path): ``ServeEngine`` on the
+   card at its published width and depth (64 Mamba-1 layers, d 4096,
+   d_inner 8192, N 16; float32 weights drawn from a seeded generator,
+   bf16 compute).  ``generate`` for 4 prompts of 512 tokens and 32 new
+   tokens in the ``step``, ``chunk`` and ``host`` modes (identical greedy
+   tokens); ``generate_many`` raises, as the reference's does.  The launch
+   counts are zeroed just before and read just after: every prefill must
+   run the scan kernel once per chunk of every layer.  Then the prefill
+   logits with the kernel against the plain scan, and the prefill / decode
+   times, peak memory and busy shares.
+8. The ``kernels:`` line with the counts, one JSON line of the kernels'
    numbers, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
@@ -105,6 +121,17 @@ PREFILL_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
 #: ulp of unit-scale outputs (2^-7 = 7.8e-3 at [1, 2))
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+#: the SSM serving phase: falcon-mamba-7b at its published width
+SSM_ARCH = "falcon-mamba-7b"
+SSM_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
+#: one scan call of its prefill: a chunk of 256 tokens of the 4 prompts,
+#: d_inner 8192, d_state 16
+SCAN_PREFILL_SHAPE = (4, 256, 8192, 16)
+#: the scan kernel against ref.ssm_scan: tests/test_kernels.py:139 in f32
+#: (the two sum in another order, and the kernel fuses each step's
+#: multiply-add); in bf16 both round one f32 result to bf16 once
+SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
+            "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 
 
 class Checks:
@@ -462,6 +489,294 @@ def serving_phase(check, report):
         "prefill_logits": prefill_cmp, "busy": busy,
         "max_memory_allocated": peak, "launches": launches,
         "prefills": prefills}
+    del model, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def scan_work(shape, itemsize, h0, state):
+    """(bytes, operations) one scan call needs: a, b (B, S, D, N) and c
+    (B, S, N) read once, y (B, S, D) written once, h0 and the final state
+    (B, D, N) f32 once each where given; two multiply-adds per state and
+    step."""
+    b, s, d, n = shape
+    nbytes = (2 * b * s * d * n + b * s * n + b * s * d) * itemsize
+    nbytes += (int(h0) + int(state)) * b * d * n * 4
+    return nbytes, 4 * b * s * d * n
+
+
+def scan_phase(check, report, time_ms):
+    """The scan kernel against ``ref.ssm_scan`` on the card, and its times
+    at the serving phase's prefill chunk.  Returns that shape's row of the
+    kernels line."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(44)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def compare(a, b, c, h0, tag):
+        """y (and the final state, with h0) of the kernel against the
+        plain version; returns the larger error."""
+        state = h0 is not None
+        got = ops.ssm_scan(a, b, c, h0=h0, return_state=state,
+                           impl="kernel")
+        want = ref.ssm_scan(a, b, c, h0=h0, return_state=state)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if state else [(got, want)]
+        tol = SCAN_TOL[str(a.dtype).split(".")[1]]
+        ok, err = True, 0.0
+        for i, (g, w) in enumerate(pairs):
+            t = tol if i == 0 else SCAN_TOL["float32"]   # the state is f32
+            g64, w64 = g.double(), w.double()
+            e = (g64 - w64).abs().max().item()
+            err = max(err, e)
+            ok = ok and (g.shape == w.shape and g.dtype == w.dtype
+                         and bool(torch.isfinite(g64).all())
+                         and bool(((g64 - w64).abs() <= t["atol"]
+                                   + t["rtol"] * w64.abs()).all()))
+        shape = list(a.shape)
+        report["kernel_checks"].append(
+            {"kernel": "ssm_scan", "tag": tag, "dtype": str(a.dtype),
+             "shapes": [shape, list(c.shape)], "h0": state,
+             "max_abs_err": err, "tol": tol, "ok": ok})
+        check(ok, f"ssm_scan {tag} {shape} {a.dtype} h0={state}: "
+                  f"max_abs_err {err:.3g} outside {tol}")
+        print(f"  {tag:14s} {shape} {str(a.dtype):14s} h0={state!s:5s}: "
+              f"max_abs_err {err:.3g}", flush=True)
+        return err
+
+    def inputs(shape, dtype):
+        bsz, s, d, n = shape
+        a = rng.uniform(0.7, 0.999, shape)     # decays in (0, 1)
+        b = rng.standard_normal(shape) * 0.1
+        c = rng.standard_normal((bsz, s, n))
+        h0 = rng.standard_normal((bsz, d, n))
+        return ([torch.from_numpy(x).to(dtype).to(dev) for x in (a, b, c)]
+                + [torch.from_numpy(h0).to(f32).to(dev)])
+
+    print("== SSM scan against ref.ssm_scan", flush=True)
+    cases = [((1, 64, 128, 16), f32, "sweep"),          # test_kernels.py
+             ((2, 100, 64, 16), f32, "sweep"),          # :126-130
+             ((1, 33, 512, 8), f32, "sweep"),
+             ((3, 1, 77, 16), f32, "S=1"),
+             ((2, 50, 40, 32), f32, "N=32"),
+             ((1, 40, 33, 64), f32, "N=64"),
+             ((2, 70, 37, 16), f32, "D=37"),
+             ((1, 64, 128, 16), bf16, "bf16"),
+             ((2, 33, 37, 8), bf16, "bf16 D=37")]
+    for shape, dtype, tag in cases:
+        a, b, c, h0 = inputs(shape, dtype)
+        compare(a, b, c, None, tag)
+        compare(a, b, c, h0, tag)
+
+    shape = SCAN_PREFILL_SHAPE
+    bsz, chunk, d, n = shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.rand(shape, generator=g, device=dev) * 0.299 + 0.7
+    b = torch.randn(shape, generator=g, device=dev) * 0.1
+    c = torch.randn((bsz, chunk, n), generator=g, device=dev)
+    h0 = torch.randn((bsz, d, n), generator=g, device=dev)
+    err = compare(a, b, c, h0, "prefill")
+    row = {"kernel": "ssm_scan", "tag": "prefill chunk", "dtype": str(f32),
+           "shapes": [list(shape), list(c.shape)], "max_abs_err": err,
+           "ms": time_ms(lambda: ops.ssm_scan(a, b, c, h0=h0,
+                                              return_state=True,
+                                              impl="kernel")),
+           "plain_ms": time_ms(lambda: ref.ssm_scan(a, b, c, h0=h0,
+                                                    return_state=True)),
+           "library_ms": None}      # no single PyTorch call scans
+    nbytes, nops = scan_work(shape, 4, True, True)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
+    row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+    report["kernel_times"].append(row)
+    print(f"  time ssm_scan prefill chunk f32 {list(shape)}, h0 and final "
+          f"state: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library - (none), bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
+    del a, b, c, h0
+    return row
+
+
+def ssm_serving_phase(check, report):
+    """falcon-mamba-7b at its published width through ``ServeEngine`` on
+    the card.  Returns the launch counts of the serving run."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.models import CallConfig, get, init_params, prefill
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import build_sampling_step
+
+    dev = torch.device("cuda")
+    cfg = get(SSM_ARCH)
+    s1 = cfg.ssm
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner, s1.d_state,
+           s1.d_conv, s1.dt_rank or -(-cfg.d_model // 16), cfg.vocab_size,
+           cfg.tie_embeddings)
+          == ("ssm", 64, 4096, 8192, 16, 4, 256, 65024, False),
+          f"{cfg.name} is not at its published width: {cfg}")
+    print(f"== serving: {cfg.name} ({cfg.n_layers} Mamba-1 layers, d "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, N {s1.d_state}, conv "
+          f"{s1.d_conv}, scan chunk {s1.chunk}, vocab {cfg.vocab_size}; "
+          f"{cfg.param_dtype} weights, {cfg.compute_dtype} compute)",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    check(n_params == 7_272_665_088, f"{n_params} parameters")
+    print(f"  init: {n_params} parameters, {param_bytes} B on the card in "
+          f"{init_s:.2f} s", flush=True)
+
+    st = SSM_STATIC
+    prompts = SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, batch_size=st["batch"],
+        seq_len=st["prompt_len"], seed=0), cfg).batch(0)["tokens"]
+    max_len = st["prompt_len"] + st["new_tokens"] + 1
+
+    # -- the main path, counted ------------------------------------------
+    outs, stats, wall = {}, {}, {}
+    torch.cuda.synchronize()
+    build.reset_counts()
+    for mode in ("step", "chunk", "host"):
+        eng = ServeEngine(cfg, model, ServeConfig(
+            batch=st["batch"], max_len=max_len, decode_mode=mode,
+            decode_chunk=st["decode_chunk"]))
+        t0 = time.perf_counter()
+        outs[mode] = eng.generate(prompts, st["new_tokens"])
+        torch.cuda.synchronize()
+        wall[mode] = time.perf_counter() - t0
+        stats[mode] = dict(eng.stats)
+    launches = build.launch_counts()
+
+    chunks = -(-st["prompt_len"] // s1.chunk)
+    want = cfg.n_layers * chunks * len(outs)
+    check(launches["ssm_scan"] == want,
+          f"serving launched ssm_scan {launches['ssm_scan']} times, not once "
+          f"per chunk of each layer of {len(outs)} prefills ({want})")
+    for mode, out in outs.items():
+        check(out.shape == (st["batch"], st["new_tokens"])
+              and out.min() >= 0 and out.max() < cfg.vocab_size,
+              f"{mode} tokens of shape {out.shape}")
+    for mode in ("chunk", "host"):
+        check(np.array_equal(outs[mode], outs["step"]),
+              f"{mode} mode emitted other greedy tokens than step mode")
+    try:
+        eng.generate_many([(prompts[0], 2)])
+        raised = False
+    except NotImplementedError:
+        raised = True
+    check(raised, "generate_many did not raise for the ssm family")
+    for mode in outs:
+        print(f"  generate {mode:5s}: batch {st['batch']} x "
+              f"{st['prompt_len']} prompt tokens, {st['new_tokens']} new: "
+              f"{wall[mode]:.3f} s wall; stats {stats[mode]}", flush=True)
+    print(f"  step tokens, row 0: {outs['step'][0].tolist()}", flush=True)
+    print("  generate_many: raises NotImplementedError, as the reference's",
+          flush=True)
+
+    # -- prefill with the kernel against the plain scan ------------------
+    toks = torch.as_tensor(prompts).to(dev)
+    calls = {impl: CallConfig(ssm_impl=impl) for impl in ("kernel", "plain")}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    prefill_cmp = {}
+    for tag, c in (("bfloat16", cfg), ("float32", f32)):
+        lg = {impl: prefill(model, c, {"tokens": toks}, max_len,
+                            call)[0].double()
+              for impl, call in calls.items()}
+        torch.cuda.synchronize()
+        lp = lg["plain"]
+        d = lg["kernel"] - lp
+        row = {"max_abs_logit": lp.abs().max().item(),
+               "kernel": {"max_abs_err": d.abs().max().item(),
+                          "rel_l2": (d.norm() / lp.norm()).item()}}
+        tol = PREFILL_TOL[tag]
+        ok = (lg["kernel"].shape == (st["batch"], 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg["kernel"]).all()))
+        if "rel_l2" in tol:
+            ok = ok and row["kernel"]["rel_l2"] <= tol["rel_l2"]
+        else:
+            ok = ok and bool((d.abs() <= tol["atol"]
+                              + tol["rtol"] * lp.abs()).all())
+        check(ok, f"{cfg.name} prefill logits in {tag} compute, kernel vs "
+                  f"plain scan: {row['kernel']} outside {tol}")
+        prefill_cmp[tag] = row
+        print(f"  prefill logits, {tag} compute (max |logit| "
+              f"{row['max_abs_logit']:.4g}): kernel vs plain scan "
+              f"max_abs_err {row['kernel']['max_abs_err']:.4g}, relative L2 "
+              f"{row['kernel']['rel_l2']:.4g}; bar {tol}", flush=True)
+        del lg, lp, d
+
+    def prefill_s(impl):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(model, cfg, {"tokens": toks}, max_len, calls[impl])
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    runs = {"kernel": [], "plain": []}
+    for impl in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+        runs[impl].append(prefill_s(impl))
+    prefill_ms = {impl: statistics.median(v) * 1e3
+                  for impl, v in runs.items()}
+    n_steps, n_prof = 16, 3
+    _, cache = prefill(model, cfg, {"tokens": toks}, max_len,
+                       calls["kernel"])
+    step = build_sampling_step(model, cfg, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = toks[:, -1:]
+    for _ in range(2):
+        tok, cache = step(cache, tok, gen)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(n_steps):
+        tok, cache = step(cache, tok, gen)
+    end.record()
+    torch.cuda.synchronize()
+    decode_ms = start.elapsed_time(end) / n_steps
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): kernel "
+          f"{prefill_ms['kernel']:.3f} ms, plain {prefill_ms['plain']:.3f} "
+          f"ms (median of 3, host clock); decode step (batch "
+          f"{st['batch']}, step mode): {decode_ms:.3f} ms per step; peak "
+          f"device memory {peak} B", flush=True)
+
+    # -- where a prefill's and a decode step's time goes -----------------
+    def step_once():
+        nonlocal tok, cache
+        tok, cache = step(cache, tok, gen)
+
+    busy = {"prefill": device_busy(
+                lambda: prefill(model, cfg, {"tokens": toks}, max_len,
+                                calls["kernel"]), 1),
+            "decode_step": device_busy(step_once, n_prof)}
+    for what, b in busy.items():
+        print(f"  profile {what}: wall {b['wall_us']:.1f} us (profiled), "
+              f"device {b['device_us']:.1f} us, busy share "
+              f"{b['busy_share']:.3f}, {b['launches']} device ops; top "
+              + "; ".join(f"{k[:40]} {us:.1f} us x{c}"
+                          for k, us, c in b["top"]), flush=True)
+    report["ssm_serving"] = {
+        "arch": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
+        "init_s": init_s, "static": SSM_STATIC, "wall_s": wall,
+        "stats": stats, "prefill_ms": prefill_ms, "prefill_runs_s": runs,
+        "decode_ms_per_step": decode_ms, "prefill_logits": prefill_cmp,
+        "busy": busy, "max_memory_allocated": peak, "launches": launches,
+        "tokens_row0": outs["step"][0].tolist()}
     del model, cache
     torch.cuda.empty_cache()
     return launches
@@ -880,16 +1195,24 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_launches = serving_phase(check, report)
 
-    # -- 6. what the main paths launched, and the result lines ---------------
+    # -- 6-7. the SSM scan, then serving falcon-mamba ----------------------
+    torch.cuda.empty_cache()
+    scan_row = scan_phase(check, report, time_ms)
+    torch.cuda.empty_cache()
+    ssm_launches = ssm_serving_phase(check, report)
+
+    # -- 8. what the main paths launched, and the result lines ---------------
     launches["flash_attention"] = serve_launches["flash_attention"]
+    launches["ssm_scan"] = ssm_launches["ssm_scan"]
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
-    for name in KERNEL_JOBS:
+    for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
         check(launches[name] > 0,
-              f"the offload phase never launched the {name} kernel")
+              f"its main path never launched the {name} kernel")
     line = []
-    for name in KERNEL_JOBS + ("flash_attention",):
+    rows = dict(main_rows, flash_attention=flash_row, ssm_scan=scan_row)
+    for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
         k = build.KERNELS[name]
-        row = flash_row if name == "flash_attention" else main_rows[name]
+        row = rows[name]
         line.append({"name": name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],

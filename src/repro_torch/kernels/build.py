@@ -30,7 +30,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu",
-           "flash_attention.cu")
+           "flash_attention.cu", "ssm_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -53,6 +53,7 @@ SIGNATURES = {
     "repro_covariance": (_I, _P, _P, _P, _L, _I, _I, _P),
     "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
+    "repro_ssm_scan": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -208,6 +209,8 @@ KERNELS: Dict[str, Kernel] = {
                          "src/repro/kernels/covariance.py:30"),
     "flash_attention": Kernel("flash_attention", _src("flash_attention.cu"),
                               "src/repro/kernels/flash_attention.py:96"),
+    "ssm_scan": Kernel("ssm_scan", _src("ssm_scan.cu"),
+                       "src/repro/kernels/ssm_scan.py:56"),
 }
 
 

@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_kernel,
 )
 from repro_torch.kernels.matmul import matmul as _matmul_kernel
+from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_kernel
 
 IMPLS = ("kernel", "plain", "auto")
 
@@ -77,3 +78,17 @@ def attention(q, k, v, *, causal: bool = True,
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal)
     return ref.attention(q, k, v, causal=causal)
+
+
+def ssm_scan(a, b, c, *, h0=None, return_state: bool = False,
+             impl: str = "auto"):
+    """The SSM scan h_t = a_t⊙h_{t-1} + b_t, y_t = Σ_n h_t[:, n]·c_t[n]:
+    a, b (B, S, D, N), c (B, S, N) -> y (B, S, D), or ``(y, h_last)`` with
+    ``return_state``; ``h0`` (B, D, N) f32 starts the state
+    (``kernels.ref.ssm_scan``)."""
+    if _resolve(impl, a) == "kernel":
+        return _ssm_kernel(
+            a.contiguous(), b.contiguous(), c.contiguous(),
+            h0=None if h0 is None else h0.to(torch.float32).contiguous(),
+            return_state=return_state)
+    return ref.ssm_scan(a, b, c, h0=h0, return_state=return_state)

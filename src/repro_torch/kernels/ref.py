@@ -62,3 +62,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+             h0: torch.Tensor | None = None, return_state: bool = False):
+    """Sequential SSM scan in f32 — the scan kernel's plain version and the
+    twin of ``repro.kernels.ref.ssm_scan``: h_t = a_t·h_{t-1} + b_t,
+    y_t = Σ_n h_t[:, n]·c_t[n].  a, b (B, S, D, N); c (B, S, N) -> y
+    (B, S, D) in a's dtype.  ``h0`` (B, D, N) is the state before the
+    first step (zeros when None); with ``return_state`` the result is
+    ``(y, h_last)``, h_last (B, D, N) float32 after the last step."""
+    bsz, s, d, n = a.shape
+    f32 = torch.float32
+    h = (torch.zeros((bsz, d, n), dtype=f32, device=a.device) if h0 is None
+         else h0.to(f32))
+    a32, b32, c32 = a.to(f32), b.to(f32), c.to(f32)
+    y = torch.empty((bsz, s, d), dtype=f32, device=a.device)
+    for t in range(s):
+        h = a32[:, t] * h + b32[:, t]
+        y[:, t] = torch.matmul(h, c32[:, t, :, None])[..., 0]
+    y = y.to(a.dtype)
+    return (y, h) if return_state else y

@@ -1,0 +1,210 @@
+"""State-space blocks: Mamba-1 (S6 selective scan) — twin of the Mamba-1
+half of ``repro.models.ssm``.
+
+The recurrence h_t = a_t ⊙ h_{t-1} + b_t runs one chunk of ``cfg.ssm.chunk``
+steps at a time, as the reference's ``lax.scan`` over chunks does: the
+(B, chunk, d_inner, d_state) gate tensors exist for one chunk only, so a
+long prompt never materialises O(S·d_inner·d_state) state.  Each chunk's
+scan goes through ``ssm_impl``:
+
+  * "kernel" — the hand-written CUDA scan kernel (``kernels.ops.ssm_scan``,
+               the twin of the Pallas ``ssm_scan``); CUDA tensors only;
+  * "plain"  — the sequential scan in plain torch (``kernels.ref.ssm_scan``),
+               on any device;
+  * "auto"   — "kernel" for a CUDA tensor, "plain" for a CPU one.
+
+Both carry the state from chunk to chunk through ``h0`` and
+``return_state``.  The reference scans inside a chunk with an associative
+scan; both of these are sequential, so the two differ by f32 rounding only.
+The last chunk is passed short, not padded: the state it returns is the
+state after the last real step, which is what the reference's zero-dt
+padding gives.  Decode is the single-step recurrence in plain torch, as the
+reference keeps it in jnp.
+
+Mamba-2 (SSD), the hybrid family's block, comes with ROADMAP.md Queue 1
+item 12 (hybrid).  Parameters ``p`` are one layer's mixer weights as a
+mapping, the reference's tree; products cast each weight to the
+activations' dtype at use.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.models.config import ModelConfig
+
+IMPLS = ("plain", "kernel", "auto")
+Params = Mapping[str, torch.Tensor]
+_F32 = torch.float32
+
+
+def resolve_impl(impl: str, t: torch.Tensor) -> str:
+    """``impl`` with "auto" decided by where ``t`` lies."""
+    if impl not in IMPLS:
+        raise ValueError(f"ssm impl must be one of {IMPLS}, got {impl!r}")
+    if impl == "auto":
+        return "kernel" if t.is_cuda else "plain"
+    return impl
+
+
+def _scan(a, b, c, h0, impl: str):
+    """One chunk's scan -> (y (B, chunk, D), h_last (B, D, N) f32)."""
+    if resolve_impl(impl, a) == "kernel":
+        return kops.ssm_scan(a, b, c, h0=h0, return_state=True,
+                             impl="kernel")
+    return kref.ssm_scan(a, b, c, h0=h0, return_state=True)
+
+
+# --- the shared recurrence engine -----------------------------------------------
+
+
+def chunked_linear_recurrence(a: torch.Tensor, b: torch.Tensor,
+                              h0: torch.Tensor, chunk: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t * h_{t-1} + b_t -> (all h_t (B, S, ...), final state).
+
+    ``a`` may be a broadcast-shaped decay (e.g. (B, S, H, 1, 1) against b's
+    (B, S, H, P, N)).  Runs sequentially; ``chunk``, the reference's
+    associative-scan block, changes nothing here but the rounding the
+    reference's result carries, and is taken for its signature."""
+    h = h0
+    states = []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + b[:, t]
+        states.append(h)
+    return torch.stack(states, dim=1), h
+
+
+# --- causal depthwise conv (k small, unrolled shifts) -----------------------------
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, C); w: (C, K); y_t = Σ_j w[:, j]·x_{t-K+1+j} + bias."""
+    k = w.shape[-1]
+    s = x.shape[1]
+    out = x * w[:, -1]
+    for j in range(1, k):
+        shifted = F.pad(x, (0, 0, j, 0))[:, :s]
+        out = out + shifted * w[:, -1 - j]
+    return out + bias
+
+
+def conv_decode(x_new: torch.Tensor, conv_state: torch.Tensor,
+                w: torch.Tensor, bias: torch.Tensor):
+    """One-step conv: state (B, K-1, C) holds the last K-1 inputs."""
+    window = torch.cat([conv_state, x_new[:, None]], dim=1)     # (B, K, C)
+    y = torch.einsum("bkc,ck->bc", window, w) + bias
+    return y, window[:, 1:]
+
+
+# --- Mamba-1 (S6) -------------------------------------------------------------------
+
+
+def _dt_rank(cfg: ModelConfig) -> int:
+    return cfg.ssm.dt_rank or -(-cfg.d_model // 16)
+
+
+def _dt_and_bc(xc: torch.Tensor, p: Params, cfg: ModelConfig):
+    """Post-conv x -> (dt f32 (B, S, din), B_t, C_t (B, S, N)) and
+    A = -exp(A_log) f32 (din, N)."""
+    n = cfg.ssm.d_state
+    r = _dt_rank(cfg)
+    dbc = torch.matmul(xc, p["x_proj"].to(xc.dtype))
+    dt_low, b_t, c_t = torch.split(dbc, [r, n, n], dim=-1)
+    dt = torch.matmul(dt_low, p["dt_proj"].to(xc.dtype))
+    dt = F.softplus(dt.to(_F32) + p["dt_bias"].to(_F32))
+    a_mat = -torch.exp(p["A_log"].to(_F32))                    # (din, N)
+    return dt, b_t, c_t, a_mat
+
+
+def _mamba1_gates(xc: torch.Tensor, p: Params, cfg: ModelConfig):
+    """Post-conv x -> (a, b_in, C_t) of the recurrence."""
+    dt, b_t, c_t, a_mat = _dt_and_bc(xc, p, cfg)
+    a = torch.exp(dt[..., None] * a_mat)                       # (B,S,din,N)
+    b = (dt * xc.to(_F32))[..., None] * b_t.to(_F32)[:, :, None, :]
+    return a, b, c_t
+
+
+def _conv_tail(x_in: torch.Tensor, k: int) -> torch.Tensor:
+    """The last K-1 pre-conv inputs (B, K-1, C): the decode cache's conv
+    state.  A prompt shorter than K-1 is preceded by zeros, as the causal
+    conv sees it."""
+    tail = x_in[:, -(k - 1):]
+    if tail.shape[1] < k - 1:
+        tail = F.pad(tail, (0, 0, k - 1 - tail.shape[1], 0))
+    return tail
+
+
+def mamba1_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                 return_state: bool = False, impl: str = "auto"):
+    """(B, S, D) -> (B, S, D); full-sequence S6.  With ``return_state``,
+    also returns (conv_tail, h_last) for priming a decode cache.
+
+    The (B, chunk, d_inner, d_state) gates are built one chunk at a time
+    and scanned with ``impl`` (module docstring), the state carried from
+    chunk to chunk."""
+    s1 = cfg.ssm
+    bsz, s = x.shape[0], x.shape[1]
+    xz = torch.matmul(x, p["in_proj"].to(x.dtype))
+    x_in, z = torch.chunk(xz, 2, dim=-1)
+    xc = F.silu(causal_conv(x_in, p["conv_w"].to(x.dtype),
+                            p["conv_b"].to(x.dtype)))
+    dt, b_t, c_t, a_mat = _dt_and_bc(xc, p, cfg)
+    xc32, b32, c32 = xc.to(_F32), b_t.to(_F32), c_t.to(_F32)
+
+    h = torch.zeros((bsz, cfg.d_inner, s1.d_state), dtype=_F32,
+                    device=x.device)
+    ys = []
+    for start in range(0, s, s1.chunk):
+        sl = slice(start, start + s1.chunk)
+        dtc = dt[:, sl]
+        a = (dtc[..., None] * a_mat).exp_()                  # (B,c,din,N)
+        b = (dtc * xc32[:, sl])[..., None] * b32[:, sl, None, :]
+        y_c, h = _scan(a, b, c32[:, sl].contiguous(), h, impl)
+        ys.append(y_c)
+        del a, b
+    y = torch.cat(ys, dim=1) if ys else xc32.new_zeros((bsz, 0, cfg.d_inner))
+    y = y + p["D"].to(_F32) * xc32
+    y = (y * F.silu(z.to(_F32))).to(x.dtype)
+    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    if return_state:
+        return out, (_conv_tail(x_in, s1.d_conv), h)
+    return out
+
+
+def mamba1_decode(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                  conv_state: torch.Tensor, h: torch.Tensor):
+    """x: (B, 1, D); returns (y, conv_state, h)."""
+    xz = torch.matmul(x, p["in_proj"].to(x.dtype))
+    x_in, z = torch.chunk(xz[:, 0], 2, dim=-1)                  # (B, din)
+    xc_flat, conv_state = conv_decode(x_in, conv_state,
+                                      p["conv_w"].to(x.dtype),
+                                      p["conv_b"].to(x.dtype))
+    xc = F.silu(xc_flat)[:, None]                               # (B,1,din)
+    a, b, c_t = _mamba1_gates(xc, p, cfg)
+    h = a[:, 0] * h + b[:, 0]                                   # (B,din,N)
+    y = torch.matmul(h, c_t[:, 0].to(_F32)[:, :, None])[..., 0]
+    y = y + p["D"].to(_F32) * xc[:, 0].to(_F32)
+    y = (y * F.silu(z.to(_F32))).to(x.dtype)[:, None]
+    return (torch.matmul(y, p["out_proj"].to(x.dtype)), conv_state, h)
+
+
+# --- Mamba-2 (SSD): the hybrid family's block --------------------------------------
+
+
+def mamba2_block(*args, **kwargs):
+    raise NotImplementedError(
+        "mamba2_block (Mamba-2 SSD) comes with the hybrid family "
+        "(ROADMAP.md Queue 1 item 12)")
+
+
+def mamba2_decode(*args, **kwargs):
+    raise NotImplementedError(
+        "mamba2_decode (Mamba-2 SSD) comes with the hybrid family "
+        "(ROADMAP.md Queue 1 item 12)")

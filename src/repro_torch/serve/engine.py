@@ -26,7 +26,10 @@ Continuous batching (``generate_many``) runs the reference's slot
 scheduler: bucketed prefill-inserts of ``prompt[:-1]`` into free slots'
 cache rows, one ragged decode step advancing every occupied slot, retire on
 the done-mask and refill from the queue, and one drain of the tokens at the
-end.
+end.  As in the reference it needs the plain attention family: it raises
+:class:`NotImplementedError` for the ``ssm`` and ``hybrid`` families, MLA
+and the modality frontends.  ``generate`` serves the ``ssm`` family
+(falcon-mamba) with its state cache (``conv``, ``h``, ``pos``).
 
 Sampling: temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed`` on each call (Gumbel-max over ``logits /
@@ -371,6 +374,12 @@ class ServeEngine:
         steps where the batch is idle are skipped, not decoded.  Greedy
         outputs are schedule-independent.
         """
+        if (self.cfg.family in ("ssm", "hybrid") or self.cfg.mla
+                or self.cfg.frontend):
+            raise NotImplementedError(
+                "continuous batching requires the plain attention family "
+                "(ragged per-slot cache positions; modality-prefix "
+                "frontends would shift every slot's positions)")
         model = self._model()
         scfg = self.scfg
         reqs = [(np.asarray(p, np.int32).ravel(), int(m))

@@ -251,8 +251,7 @@ def test_yi_9b_at_published_width():
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
                                   "deepseek-v2-lite-16b", "paligemma-3b",
-                                  "zamba2-2.7b", "musicgen-large",
-                                  "falcon-mamba-7b"])
+                                  "zamba2-2.7b", "musicgen-large"])
 def test_other_families_raise_naming_the_roadmap(arch):
     cfg = T.get(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):

@@ -7,7 +7,8 @@ writes what it saw: the weights, greedy ``generate`` tokens in the
 ``host``, ``step`` and ``chunk`` modes (with a chunk remainder), a padded
 sub-batch, ``generate_many`` over an arrival trace, every engine's
 ``stats`` and the link bytes of ``place_params`` under ``direct`` and
-``tree`` staging.  The port replays the same calls on ``device="cpu"``
+``tree`` staging; and the same, but ``generate_many`` (which raises for the
+``ssm`` family in both packages), for ``reduced(falcon-mamba-7b)``.  The port replays the same calls on ``device="cpu"``
 with the same weights (``convert.model_params_from_numpy``) and is held to
 them exactly: tokens and ``stats`` dicts equal.  Float32 compute keeps the
 greedy argmax away from ties (the logits agree to ~1e-6).
@@ -33,6 +34,7 @@ from repro_torch.models import model as TM
 from repro_torch.serve import ServeConfig, ServeEngine
 
 ARCHS = ["smollm-360m", "yi-9b"]
+SSM_ARCH = "falcon-mamba-7b"
 BATCH, PROMPT, NEW, CHUNK = 4, 8, 12, 5
 MAXLEN = PROMPT + NEW + 1
 MANY = dict(requests=6, batch=4, max_len=32, seed=3)
@@ -49,7 +51,7 @@ from repro.serve import ServeConfig, ServeEngine
 
 mesh = make_mesh((1, 1), ("data", "model"))
 out, meta = {{}}, {{}}
-for arch in {archs}:
+for arch in {archs} + [{ssm_arch!r}]:
     cfg = dataclasses.replace(M.reduced(M.get(arch)), compute_dtype="float32")
     params = jax.device_get(M.init_params(jax.random.key(0), cfg))
     for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
@@ -75,6 +77,8 @@ for arch in {archs}:
     for staging in (Staging.DIRECT, Staging.TREE):
         meta[f"place_{{arch}}_{{staging.value}}"] = engine(
             staging=staging).stats
+    if cfg.family == "ssm":
+        continue
 
     many = {many}
     rng = np.random.default_rng(many["seed"])
@@ -106,7 +110,7 @@ def reference(tmp_path_factory, subproc):
     d = tmp_path_factory.mktemp("serve_ref")
     path, meta_path = str(d / "ref.npz"), str(d / "meta.json")
     subproc(_REFERENCE_CODE.format(
-        archs=ARCHS, batch=BATCH, prompt=PROMPT, maxlen=MAXLEN, chunk=CHUNK,
+        archs=ARCHS, ssm_arch=SSM_ARCH, batch=BATCH, prompt=PROMPT, maxlen=MAXLEN, chunk=CHUNK,
         new=NEW, many=MANY, path=path, meta_path=meta_path),
         devices=1, x64=False, timeout=900)
     with np.load(path) as z:
@@ -155,7 +159,7 @@ def _prompts(arch):
 
 
 @pytest.mark.parametrize("mode", ["host", "step", "chunk"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [SSM_ARCH])
 def test_generate_matches_reference(reference, arch, mode):
     arrays, meta = reference
     eng = _engine(arrays, arch, decode_mode=mode)
@@ -165,7 +169,7 @@ def test_generate_matches_reference(reference, arch, mode):
     assert eng.stats == meta[f"stats_{arch}_{mode}"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [SSM_ARCH])
 def test_padded_sub_batch_matches_reference(reference, arch):
     arrays, meta = reference
     eng = _engine(arrays, arch, decode_mode="chunk")
@@ -195,7 +199,7 @@ def test_generate_many_matches_reference(reference, arch, staging):
 
 
 @pytest.mark.parametrize("staging", ["direct", "tree"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [SSM_ARCH])
 def test_place_params_bytes_match_reference(reference, arch, staging):
     arrays, meta = reference
     eng = _engine(arrays, arch, staging=Staging(staging))
@@ -314,6 +318,40 @@ def test_serve_cli_on_cpu(capsys):
                 "--prompt-len", "6", "--new-tokens", "3"])
     out = capsys.readouterr().out
     assert "continuous on cpu: 3 requests, 9 tokens" in out
+
+
+def test_ssm_engine_keeps_a_state_cache_and_refuses_continuous(reference):
+    """``generate`` primes the state cache through the scan; continuous
+    batching raises for the ssm family, as the reference's does."""
+    arrays, _ = reference
+    eng = _engine(arrays, SSM_ARCH)
+    with pytest.raises(NotImplementedError, match="continuous batching"):
+        eng.generate_many([(np.arange(5, dtype=np.int32), 3)])
+    assert eng.stats["prefill_inserts"] == 0
+    cfg = _cfg(SSM_ARCH)
+    _, cache = TM.prefill(eng.params, cfg, {"tokens": torch.as_tensor(
+        _prompts(SSM_ARCH))}, MAXLEN)
+    assert set(cache) == {"conv", "h", "pos"}
+    assert cache["h"].shape == (cfg.n_layers, BATCH, cfg.d_inner,
+                                cfg.ssm.d_state)
+    assert cache["h"].dtype == torch.float32 and cache["pos"] == PROMPT
+
+
+def test_serve_cli_serves_falcon_mamba_on_cpu(capsys):
+    outs = {}
+    for mode in ("step", "chunk", "host"):
+        t_cli.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "8", "--new-tokens", "6",
+                    "--decode-mode", mode, "--decode-chunk", "4"])
+        out = capsys.readouterr().out
+        assert "[serve] generated 12 tokens on cpu" in out
+        outs[mode] = [line.split("->")[1] for line in out.splitlines()
+                      if "slot " in line]
+    assert outs["step"] == outs["chunk"] == outs["host"]
+    with pytest.raises(NotImplementedError, match="continuous batching"):
+        t_cli.main(["--arch", SSM_ARCH, "--reduced", "--device", "cpu",
+                    "--continuous", "--requests", "2", "--batch", "2",
+                    "--prompt-len", "6", "--new-tokens", "3"])
 
 
 def test_serve_cli_defaults_to_the_card():
