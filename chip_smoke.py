@@ -8,15 +8,20 @@ CUDA toolkit (``nvcc``).  Without a card, or without the rest of the
 repository beside it, it exits non-zero and prints no result.  It imports
 no JAX and nothing of the reference package.
 
-1. Header: the card's name and power limit, and the kernels' build from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel).
+1. Header: the card's name and power limit, the kernels' build from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel),
+   and a census of the built code's SASS (``cuobjdump -sass``: HGMMA,
+   HMMA, DMMA, UTMALDG and LDGSTS by kernel, to ``DIR/sass_census.json``);
+   the bf16 flash kernel must hold a tensor-core product, the fp64 matmul
+   DMMA.
 2. Kernels: every hand-written kernel against its plain PyTorch version on
    the card — at float64 at every shape the offload phase gives it, in
    float32/bfloat16 over ``tests/test_kernels.py``'s sweeps with that
    file's tolerances, and timed (CUDA events, median of 30 calls after
    warm-up) beside its plain version, one PyTorch library call where one
    computes the same function, and its bound at the offload phase's largest
-   shapes and at one large standalone shape each.
+   shapes (fp64 matmul also at the n = 1 and 8 shards) and at one large
+   standalone shape each.
 3. Offload (the main path): ``OffloadRuntime`` on the card for all six
    jobs × {baseline, extended} × n ∈ {1, 8, 32}, at each job's default
    size and at a larger one; results against ``make_instance``'s expected
@@ -26,9 +31,13 @@ no JAX and nothing of the reference package.
    launch counts are zeroed just before this phase and read just after.
 4. Flash attention: the hand-written kernel against ``ref.attention`` over
    ``tests/test_kernels.py``'s flash sweep (f32 at 2e-3), GQA, Sq < Skv,
-   head dim 32 and bf16 (at 1e-2, about one bf16 ulp of unit-scale
-   outputs), and at the serving phase's prefill shape, timed beside its
-   plain version, ``scaled_dot_product_attention`` and its bound.
+   causal Sq > Skv (whose rows with no visible column must give the mean
+   of V), head dims 32, 64, 80 and 128, Skv = 1, in f32 and bf16 (at 1e-2,
+   about one bf16 ulp of unit-scale outputs); then at the serving phase's
+   prefill shape and at one shape bound by operations (2048 tokens),
+   timed beside its plain version, ``scaled_dot_product_attention`` (with
+   its own distance to ``ref.attention``, the noise floor) and its
+   bound.
 5. Serving (the second main path): ``ServeEngine`` on the card with
    Yi-9B at its published width (48 layers, d 4096, 32/4 heads, head dim
    128; float32 weights drawn from a seeded generator, bf16 compute).
@@ -121,6 +130,14 @@ PREFILL_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
 #: ulp of unit-scale outputs (2^-7 = 7.8e-3 at [1, 2))
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+#: the instructions each redesigned kernel must hold in its SASS (every
+#: instance, by the kernel's name): the bf16 flash kernel a tensor-core
+#: product, the fp64 matmul DMMA
+SASS_NEEDS = {"flash_wgmma_kernel": ("HGMMA", "HMMA"),
+              "matmul_dmma_kernel": ("DMMA",)}
+#: one flash call bound by operations, not bytes: Yi-9B's heads at 2048
+#: tokens, causal, bf16 (34.4 GFLOP against 37.7 MB)
+FLASH_OPS_SHAPE = ((1, 32, 2048, 128), (1, 4, 2048, 128))
 #: the SSM serving phase: falcon-mamba-7b at its published width
 SSM_ARCH = "falcon-mamba-7b"
 SSM_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
@@ -199,6 +216,14 @@ def flash_phase(check, report, time_ms):
               and bool(torch.isfinite(g).all())
               and bool(((g - w).abs() <= tol["atol"]
                         + tol["rtol"] * w.abs()).all()))
+        sq, skv = qs[2], ks[2]
+        if causal and sq > skv:
+            # rows that see no column: the mean of V, as ref.attention
+            mean = v.double().mean(dim=2, keepdim=True).repeat_interleave(
+                qs[1] // ks[1], dim=1).expand(-1, -1, sq - skv, -1)
+            e = (g[:, :, :sq - skv] - mean).abs()
+            ok = ok and bool((e <= tol["atol"]
+                              + tol["rtol"] * mean.abs()).all())
         report["kernel_checks"].append(
             {"kernel": "flash_attention", "tag": tag, "dtype": str(dtype),
              "shapes": [list(qs), list(ks)], "causal": causal,
@@ -219,39 +244,63 @@ def flash_phase(check, report, time_ms):
               ((1, 2, 1, 80), (1, 2, 77, 80), f32, "sq=1"),
               ((4, 4, 96, 32), (4, 2, 96, 32), f32, "d32"),
               ((2, 4, 50, 32), (2, 4, 130, 32), f32, "d32 sq<skv"),
+              ((1, 2, 40, 64), (1, 2, 9, 64), f32, "sq>skv"),
+              ((2, 8, 300, 128), (2, 2, 70, 128), f32, "sq>skv gqa"),
+              ((1, 3, 130, 80), (1, 1, 65, 80), f32, "sq>skv d80"),
               ((1, 8, 128, 128), (1, 8, 128, 128), bf16, "bf16"),
               ((1, 1, 384, 80), (1, 1, 384, 80), bf16, "bf16"),
               ((2, 8, 64, 128), (2, 2, 200, 128), bf16, "bf16 sq<skv gqa"),
-              ((4, 4, 96, 32), (4, 2, 96, 32), bf16, "bf16 d32")]
+              ((4, 4, 96, 32), (4, 2, 96, 32), bf16, "bf16 d32"),
+              ((2, 4, 100, 64), (2, 4, 100, 64), bf16, "bf16 d64"),
+              ((1, 2, 1, 80), (1, 2, 77, 80), bf16, "bf16 sq=1"),
+              ((1, 2, 5, 128), (1, 2, 1, 128), bf16, "bf16 skv=1"),
+              ((1, 2, 40, 64), (1, 2, 9, 64), bf16, "bf16 sq>skv"),
+              ((2, 8, 300, 128), (2, 2, 70, 128), bf16, "bf16 sq>skv gqa"),
+              ((1, 3, 130, 80), (1, 1, 65, 80), bf16, "bf16 sq>skv d80"),
+              ((2, 4, 100, 32), (2, 4, 33, 32), bf16, "bf16 sq>skv d32")]
     for qs, ks, dtype, tag in cases:
         for causal in (True, False):
             _, err = compare(qs, ks, dtype, causal, tag)
             print(f"  {tag:16s} q{list(qs)} kv{list(ks)} {str(dtype):14s} "
                   f"causal={causal!s:5s}: max_abs_err {err:.3g}", flush=True)
 
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+
+    def timed(qs, ks, tag):
+        (q, k, v), err = compare(qs, ks, bf16, True, tag)
+        row = {"kernel": "flash_attention", "tag": tag, "dtype": str(bf16),
+               "shapes": [list(qs), list(ks)], "max_abs_err": err,
+               "ms": time_ms(lambda: ops.attention(q, k, v, impl="kernel")),
+               "plain_ms": time_ms(lambda: ref.attention(q, k, v))}
+        try:
+            row["library_ms"] = time_ms(lambda: sdpa(q, k, v))
+            # SDPA's own distance to ref.attention: the noise floor of bf16
+            row["library_max_abs_err"] = (
+                sdpa(q, k, v).double()
+                - ref.attention(q, k, v).double()).abs().max().item()
+        except TypeError:                   # a torch without enable_gqa
+            row["library_ms"] = row["library_max_abs_err"] = None
+        nbytes, nops = flash_work(qs, ks, True, 2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / PEAK_OPS_PER_S["bfloat16"] * 1e3
+        row["bound_ms"], row["bound_by"] = (
+            (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+        report["kernel_times"].append(row)
+        lib = ("-" if row["library_ms"] is None else
+               f"{row['library_ms']:.4f} ms (max_abs_err "
+               f"{row['library_max_abs_err']:.3g})")
+        print(f"  time flash_attention {tag} bf16 q{list(qs)} kv{list(ks)}: "
+              f"kernel {row['ms']:.4f} ms (max_abs_err {err:.3g}), plain "
+              f"{row['plain_ms']:.4f} ms, sdpa {lib}, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} B, "
+              f"{nops} ops)", flush=True)
+        return row
+
     b, st = SERVE_STATIC["batch"], SERVE_STATIC["prompt_len"]
-    qs, ks = (b, 32, st, 128), (b, 4, st, 128)      # Yi-9B's prefill
-    (q, k, v), err = compare(qs, ks, bf16, True, "prefill")
-    row = {"kernel": "flash_attention", "tag": "prefill", "dtype": str(bf16),
-           "shapes": [list(qs), list(ks)], "max_abs_err": err,
-           "ms": time_ms(lambda: ops.attention(q, k, v, impl="kernel")),
-           "plain_ms": time_ms(lambda: ref.attention(q, k, v))}
-    try:
-        row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
-    except TypeError:                       # a torch without enable_gqa
-        row["library_ms"] = None
-    nbytes, nops = flash_work(qs, ks, True, 2)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                        else (t_ops, "operations"))
-    report["kernel_times"].append(row)
-    lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f}"
-    print(f"  time flash_attention prefill bf16 q{list(qs)} kv{list(ks)}: "
-          f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-          f"sdpa {lib} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
+    row = timed((b, 32, st, 128), (b, 4, st, 128), "prefill")  # Yi-9B's
+    timed(*FLASH_OPS_SHAPE, "operations-bound")
     return row
 
 
@@ -824,6 +873,20 @@ def main() -> int:
           f"built={built.built})", flush=True)
     report["card"], report["build_s"] = card, built.seconds
 
+    # the tensor-core instructions in the built code (cuobjdump -sass)
+    census = build.sass_census(built.path)
+    with open(os.path.join(args.out, "sass_census.json"), "w") as f:
+        json.dump(census, f, indent=1)
+    report["sass_census"] = census
+    for role, needs in SASS_NEEDS.items():
+        found = {fn: c for fn, c in census.items() if role in fn}
+        check(bool(found) and all(any(c[op] for op in needs)
+                                  for c in found.values()),
+              f"SASS: {role} lacks {' or '.join(needs)}: {found}")
+        for fn, c in found.items():
+            print(f"  sass {role}: " + ", ".join(
+                f"{op} {n}" for op, n in c.items() if n), flush=True)
+
     # -- 2. kernels against their plain versions -----------------------------
     def work(name, shapes, dtype):
         """(bytes, operations) the function needs: each input read once,
@@ -955,6 +1018,10 @@ def main() -> int:
                       f"{err:.3g}", flush=True)
         tensors = job_shapes(name, (), 8, fuse=FUSE)
         compare(name, tensors, JOB_TOL, f"job default n=8 B={FUSE}")
+        if name == "matmul":     # the other cluster counts' shards
+            for n in (1, 8):
+                timed(name, job_shapes(name, OFFLOAD_SIZES[name][1], n),
+                      f"job large n={n}")
         # the largest shape of the offload phase: the JSON line's numbers
         tensors = job_shapes(name, OFFLOAD_SIZES[name][1], 32)
         row = timed(name, tensors, "job large n=32")

@@ -21,6 +21,7 @@ import functools
 import hashlib
 import os
 import shutil
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -31,7 +32,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu",
            "flash_attention.cu", "ssm_scan.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 #: the repository root (src/repro_torch/kernels/build.py -> parents[3])
@@ -54,6 +55,7 @@ SIGNATURES = {
     "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
     "repro_ssm_scan": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_flash_qk_tile": (_P, _P, _P, _I, _P),
 }
 
 
@@ -131,6 +133,41 @@ def build(*, verbose: bool = False) -> BuildResult:
         os.replace(staged, lib)
     ptxas = "".join(f"--- {src} ---\n{out}" for src, out in reports.items())
     return BuildResult(lib, time.perf_counter() - t0, built=True, ptxas=ptxas)
+
+
+#: the SASS opcodes the census counts: wgmma (HGMMA) and mma.sync (HMMA)
+#: on bf16, DMMA on fp64, TMA loads (UTMALDG) and cp.async (LDGSTS)
+CENSUS_OPCODES = ("HGMMA", "HMMA", "DMMA", "UTMALDG", "LDGSTS")
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def parse_sass(text: str) -> Dict[str, Dict[str, int]]:
+    """Counts of ``CENSUS_OPCODES`` in each function of a
+    ``cuobjdump -sass`` listing, by (mangled) function name."""
+    census: Dict[str, Dict[str, int]] = {}
+    counts = None
+    for line in text.splitlines():
+        fn = _SASS_FUNCTION.match(line)
+        if fn:
+            counts = census.setdefault(fn.group(1),
+                                       dict.fromkeys(CENSUS_OPCODES, 0))
+            continue
+        op = _SASS_OPCODE.search(line)
+        if counts is not None and op and op.group(1) in counts:
+            counts[op.group(1)] += 1
+    return census
+
+
+def sass_census(path: Path) -> Dict[str, Dict[str, int]]:
+    """``parse_sass`` of the built library, read with ``cuobjdump -sass``
+    (beside ``nvcc``)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass failed: {out.stderr.strip()}")
+    return parse_sass(out.stdout)
 
 
 def load(path: Path) -> ctypes.CDLL:

@@ -13,7 +13,10 @@ kernel tests (``tests/test_kernels.py:78-113``).
 Sq < Skv is held to ``ref.attention`` only: the TPU kernel aligns its
 causal mask top-left (``flash_attention.py:52, 67-71``) while
 ``ref.attention``, the model's ``_mask`` and the port's kernel align it
-bottom-right, and the two agree only for Sq == Skv.
+bottom-right, and the two agree only for Sq == Skv.  So is causal
+Sq > Skv, whose first Sq - Skv rows see no column: ``ref.attention`` gives
+them the mean of V (a softmax over a row filled with -1e30), held at
+``1e-5``.
 """
 
 import dataclasses
@@ -38,6 +41,8 @@ OFFSET = [(1, 2, 37, 100, 64), (2, 4, 64, 160, 32), (1, 2, 1, 45, 80),
           (1, 1, 130, 131, 128)]
 #: GQA: (B, Hq, Hkv, Sq, Skv, D)
 GQA = [(2, 8, 2, 48, 48, 32), (1, 32, 4, 64, 64, 128), (1, 6, 3, 20, 50, 64)]
+#: causal Sq > Skv: (B, H, Sq, Skv, D)
+ABOVE = [(1, 2, 40, 9, 64), (2, 3, 70, 33, 128)]
 DECODE = dict(arch="yi-9b", batch=2, smax=24, pos=9, pos_b=(3, 17))
 
 _REFERENCE_CODE = '''
@@ -99,6 +104,11 @@ o, k2, v2 = attn.gqa_decode_ragged(jnp.asarray(x), p, cfg, jnp.asarray(kc),
                                    jnp.asarray(vc), pos_b)
 out.update({{"rag_o": np.asarray(o), "rag_k2": np.asarray(k2),
              "rag_v2": np.asarray(v2)}})
+rng = np.random.default_rng(11)
+for i, (b, h, sq, skv, d) in enumerate({above}):
+    q, k, v = rnd(b, h, sq, d), rnd(b, h, skv, d), rnd(b, h, skv, d)
+    out.update({{f"above{{i}}_q": q, f"above{{i}}_k": k, f"above{{i}}_v": v}})
+    out[f"above{{i}}_ref"] = np.asarray(ref.attention(q, k, v, causal=True))
 np.savez({path!r}, **out)
 '''
 
@@ -107,7 +117,7 @@ np.savez({path!r}, **out)
 def reference(tmp_path_factory, subproc):
     path = str(tmp_path_factory.mktemp("attn_ref") / "ref.npz")
     subproc(_REFERENCE_CODE.format(sweep=SWEEP, offset=OFFSET, gqa=GQA,
-                                   decode=DECODE, path=path),
+                                   above=ABOVE, decode=DECODE, path=path),
             devices=1, x64=False, timeout=900)
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -159,6 +169,25 @@ def test_sq_below_skv_matches_reference_ref(reference, i, causal):
         for impl in ("plain", "chunked"):
             _close(t_attn.multihead_attention(q, k, v, impl=impl, chunk=32),
                    want)
+
+
+@pytest.mark.parametrize("i", range(len(ABOVE)))
+def test_sq_above_skv_matches_reference_ref(reference, i):
+    """Causal Sq > Skv: the rows that see no column take the mean of V,
+    in the port's plain version as in the reference's."""
+    r = reference
+    q, k, v = (_t(r[f"above{i}_{n}"]) for n in "qkv")
+    want = r[f"above{i}_ref"]
+    for got in (t_ref.attention(q, k, v, causal=True),
+                t_ops.attention(q, k, v, causal=True)):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    sq, skv = q.shape[2], k.shape[2]
+    np.testing.assert_allclose(want[:, :, :sq - skv],
+                               np.broadcast_to(r[f"above{i}_v"].mean(
+                                   axis=2, keepdims=True),
+                                   want[:, :, :sq - skv].shape),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("i", range(len(GQA)))
