@@ -13,15 +13,22 @@ no JAX and nothing of the reference package.
    and a census of the built code's SASS (``cuobjdump -sass``: HGMMA,
    HMMA, DMMA, UTMALDG and LDGSTS by kernel, to ``DIR/sass_census.json``);
    the bf16 flash kernel must hold a tensor-core product, the fp64 matmul
-   DMMA.
+   and covariance DMMA.
 2. Kernels: every hand-written kernel against its plain PyTorch version on
    the card — at float64 at every shape the offload phase gives it, in
    float32/bfloat16 over ``tests/test_kernels.py``'s sweeps with that
-   file's tolerances, and timed (CUDA events, median of 30 calls after
-   warm-up) beside its plain version, one PyTorch library call where one
-   computes the same function, and its bound at the offload phase's largest
-   shapes (fp64 matmul also at the n = 1 and 8 shards) and at one large
-   standalone shape each.
+   file's tolerances, the fp64 covariance SYRK's hard cases (ragged M and
+   N, data offset by +1e3, a view off a 16-byte boundary; exactly
+   symmetric) and axpy's (ragged lengths, x, y and z at different offsets
+   from a 16-byte boundary) — and timed beside its plain version, one
+   PyTorch library call where one computes the same function, and its
+   bound at the offload phase's largest shapes (fp64 matmul also at the
+   n = 1 and 8 shards) and at one large standalone shape each.  Two times
+   each: "call ms", CUDA events around each single call (median of 30
+   after warm-up), which holds the host's launch path; and "device ms",
+   events around a run of back-to-back calls queued behind a sleep kernel
+   (so the host is off the clock), over inputs rotated through more bytes
+   than the 50 MB L2, per call.
 3. Offload (the main path): ``OffloadRuntime`` on the card for all six
    jobs × {baseline, extended} × n ∈ {1, 8, 32}, at each job's default
    size and at a larger one; results against ``make_instance``'s expected
@@ -132,9 +139,18 @@ FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 #: the instructions each redesigned kernel must hold in its SASS (every
 #: instance, by the kernel's name): the bf16 flash kernel a tensor-core
-#: product, the fp64 matmul DMMA
+#: product, the fp64 matmul and covariance DMMA
 SASS_NEEDS = {"flash_wgmma_kernel": ("HGMMA", "HMMA"),
-              "matmul_dmma_kernel": ("DMMA",)}
+              "matmul_dmma_kernel": ("DMMA",),
+              "cov_dmma_kernel": ("DMMA",)}
+#: device ms: the inputs of one timed run rotate over at least this many
+#: bytes (4x the H100's 50 MB L2), so every call reads them from memory
+ROTATE_BYTES = 200e6
+#: device ms: back-to-back calls per run, and the sleep (GPU clock cycles a
+#: call) queued ahead of them so the host has queued them all before the
+#: first starts
+DEVICE_CALLS = 20
+SLEEP_CYCLES_PER_CALL = 200_000
 #: one flash call bound by operations, not bytes: Yi-9B's heads at 2048
 #: tokens, causal, bf16 (34.4 GFLOP against 37.7 MB)
 FLASH_OPS_SHAPE = ((1, 32, 2048, 128), (1, 4, 2048, 128))
@@ -171,6 +187,37 @@ def nvidia_smi(query):
     if out.returncode != 0 or not out.stdout.strip():
         raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def rotation(tensors, nbytes):
+    """Input sets for a device-ms run: ``tensors`` and copies of them, enough
+    that one pass over the sets moves ``ROTATE_BYTES`` (a call moves
+    ``nbytes``)."""
+    copies = max(0, min(63, -(-int(ROTATE_BYTES) // max(int(nbytes), 1)) - 1))
+    return [list(tensors)] + [[t.clone() for t in tensors]
+                              for _ in range(copies)]
+
+
+def device_ms(fn, sets):
+    """Device time of one call of ``fn(*inputs)``: CUDA events around
+    back-to-back calls over the rotating input ``sets``, divided by their
+    count.  A sleep kernel queued first holds the card until the host has
+    queued every call, so the host's launch path is off the clock."""
+    import torch
+
+    calls = max(DEVICE_CALLS, 2 * len(sets))
+    for inputs in sets[:2]:
+        fn(*inputs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * calls)
+    start.record()
+    for i in range(calls):
+        fn(*sets[i % len(sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def flash_work(q_shape, kv_shape, causal, itemsize):
@@ -270,29 +317,40 @@ def flash_phase(check, report, time_ms):
 
     def timed(qs, ks, tag):
         (q, k, v), err = compare(qs, ks, bf16, True, tag)
+        nbytes, nops = flash_work(qs, ks, True, 2)
+        sets = rotation((q, k, v), nbytes)
+
+        def kernel(q, k, v):
+            return ops.attention(q, k, v, impl="kernel")
+
         row = {"kernel": "flash_attention", "tag": tag, "dtype": str(bf16),
                "shapes": [list(qs), list(ks)], "max_abs_err": err,
-               "ms": time_ms(lambda: ops.attention(q, k, v, impl="kernel")),
+               "ms": time_ms(lambda: kernel(q, k, v)),
+               "device_ms": device_ms(kernel, sets),
                "plain_ms": time_ms(lambda: ref.attention(q, k, v))}
         try:
             row["library_ms"] = time_ms(lambda: sdpa(q, k, v))
+            row["library_device_ms"] = device_ms(sdpa, sets)
             # SDPA's own distance to ref.attention: the noise floor of bf16
             row["library_max_abs_err"] = (
                 sdpa(q, k, v).double()
                 - ref.attention(q, k, v).double()).abs().max().item()
         except TypeError:                   # a torch without enable_gqa
             row["library_ms"] = row["library_max_abs_err"] = None
-        nbytes, nops = flash_work(qs, ks, True, 2)
+            row["library_device_ms"] = None
+        del sets
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / PEAK_OPS_PER_S["bfloat16"] * 1e3
         row["bound_ms"], row["bound_by"] = (
             (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
         report["kernel_times"].append(row)
         lib = ("-" if row["library_ms"] is None else
-               f"{row['library_ms']:.4f} ms (max_abs_err "
+               f"{row['library_ms']:.4f} ms (device "
+               f"{row['library_device_ms']:.4f}; max_abs_err "
                f"{row['library_max_abs_err']:.3g})")
         print(f"  time flash_attention {tag} bf16 q{list(qs)} kv{list(ks)}: "
-              f"kernel {row['ms']:.4f} ms (max_abs_err {err:.3g}), plain "
+              f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f}; "
+              f"max_abs_err {err:.3g}), plain "
               f"{row['plain_ms']:.4f} ms, sdpa {lib}, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {nbytes} B, "
               f"{nops} ops)", flush=True)
@@ -629,22 +687,27 @@ def scan_phase(check, report, time_ms):
     c = torch.randn((bsz, chunk, n), generator=g, device=dev)
     h0 = torch.randn((bsz, d, n), generator=g, device=dev)
     err = compare(a, b, c, h0, "prefill")
+    nbytes, nops = scan_work(shape, 4, True, True)
+
+    def kernel(a, b, c, h0):
+        return ops.ssm_scan(a, b, c, h0=h0, return_state=True, impl="kernel")
+
     row = {"kernel": "ssm_scan", "tag": "prefill chunk", "dtype": str(f32),
            "shapes": [list(shape), list(c.shape)], "max_abs_err": err,
-           "ms": time_ms(lambda: ops.ssm_scan(a, b, c, h0=h0,
-                                              return_state=True,
-                                              impl="kernel")),
+           "ms": time_ms(lambda: kernel(a, b, c, h0)),
+           "device_ms": device_ms(kernel, rotation((a, b, c, h0), nbytes)),
            "plain_ms": time_ms(lambda: ref.ssm_scan(a, b, c, h0=h0,
                                                     return_state=True)),
-           "library_ms": None}      # no single PyTorch call scans
-    nbytes, nops = scan_work(shape, 4, True, True)
+           # no single PyTorch call scans
+           "library_ms": None, "library_device_ms": None}
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
     row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
                                         else (t_ops, "operations"))
     report["kernel_times"].append(row)
     print(f"  time ssm_scan prefill chunk f32 {list(shape)}, h0 and final "
-          f"state: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"state: kernel {row['ms']:.4f} ms (device "
+          f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
           f"library - (none), bound {row['bound_ms']:.4f} ms "
           f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
     del a, b, c, h0
@@ -937,22 +1000,21 @@ def main() -> int:
 
     def library(name, tensors):
         """One PyTorch call computing the same function, where one exists
-        for these shapes (timed as a yardstick only)."""
+        for these shapes (timed as a yardstick only), as a function of the
+        inputs."""
         if name == "axpy":
-            x, y = tensors
-            return lambda: torch.add(y, x, alpha=2.5)
+            return lambda x, y: torch.add(y, x, alpha=2.5)
         if name == "matmul":
-            return lambda: torch.matmul(*tensors)
+            return torch.matmul
         if tensors[0].ndim != 2:
             return None          # no single batched call for these two
         if name == "atax":       # two calls: A^T (A x)
-            a, x = tensors
-            return lambda: torch.mv(a.T, torch.mv(a, x))
-        return lambda: torch.cov(tensors[0])
+            return lambda a, x: torch.mv(a.T, torch.mv(a, x))
+        return torch.cov
 
-    def compare(name, tensors, tol, tag):
-        got = call(name, tensors, "kernel")
-        want = call(name, tensors, "plain")
+    def held(name, tag, got, want, tol, shapes):
+        """Record and check one kernel result against its plain version;
+        fp64 covariance must also be exactly symmetric."""
         torch.cuda.synchronize()
         g, w = got.double(), want.double()
         err = (g - w).abs().max().item() if g.numel() else 0.0
@@ -960,32 +1022,51 @@ def main() -> int:
               and bool(((g - w).abs() <= tol["atol"]
                         + tol["rtol"] * w.abs()).all()))
         if name == "covariance":
-            ok = ok and bool(((g - g.mT).abs() <= 1e-5
-                              + 1e-5 * g.abs()).all())
+            ok = ok and (torch.equal(got, got.mT)
+                         if got.dtype == torch.float64 else
+                         bool(((g - g.mT).abs() <= 1e-5
+                               + 1e-5 * g.abs()).all()))
         row = {"kernel": name, "tag": tag, "dtype": str(got.dtype),
-               "shapes": [list(t.shape) for t in tensors],
-               "max_abs_err": err, "tol": tol, "ok": ok}
+               "shapes": shapes, "max_abs_err": err, "tol": tol, "ok": ok}
         report["kernel_checks"].append(row)
-        check(ok, f"{name} {tag} {row['shapes']} {got.dtype}: kernel vs "
-                  f"plain max_abs_err {err:.3g} outside {tol}")
+        check(ok, f"{name} {tag} {shapes} {got.dtype}: kernel vs plain "
+                  f"max_abs_err {err:.3g} outside {tol}")
         return err
+
+    def compare(name, tensors, tol, tag):
+        return held(name, tag, call(name, tensors, "kernel"),
+                    call(name, tensors, "plain"), tol,
+                    [list(t.shape) for t in tensors])
 
     def timed(name, tensors, tag):
         dtype = tensors[0].dtype
+        sets = rotation(tensors, work(name, [tuple(t.shape) for t in tensors],
+                                      dtype)[0])
+
+        def kernel(*ts):
+            return call(name, ts, "kernel")
+
         row = {"kernel": name, "tag": tag, "dtype": str(dtype),
                "shapes": [list(t.shape) for t in tensors],
-               "ms": time_ms(lambda: call(name, tensors, "kernel")),
+               "ms": time_ms(lambda: kernel(*tensors)),
+               "device_ms": device_ms(kernel, sets),
                "plain_ms": time_ms(lambda: call(name, tensors, "plain"))}
         lib = library(name, tensors)
-        row["library_ms"] = time_ms(lib) if lib is not None else None
+        row["library_ms"] = (time_ms(lambda: lib(*tensors))
+                             if lib is not None else None)
+        row["library_device_ms"] = (device_ms(lib, sets)
+                                    if lib is not None else None)
+        del sets
         row["bound_ms"], row["bound_by"] = bound(name, tensors, dtype)
         report["kernel_times"].append(row)
         lib_s = ("-" if row["library_ms"] is None
-                 else f"{row['library_ms']:.4f}")
+                 else f"{row['library_ms']:.4f} (device "
+                      f"{row['library_device_ms']:.4f})")
         print(f"  time {name:10s} {tag:22s} {str(dtype):14s} "
-              f"{row['shapes']}: kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library {lib_s} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+              f"{row['shapes']}: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"library {lib_s} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
         return row
 
     def job_shapes(name, size, n, fuse=None):
@@ -1059,6 +1140,50 @@ def main() -> int:
     n_sweep = sum(r["tag"] == "sweep" for r in report["kernel_checks"])
     print(f"  {n_sweep} sweep comparisons done", flush=True)
 
+    print("== kernels: the fp64 SYRK's and axpy's hard cases", flush=True)
+    f64 = torch.float64
+    hard = len(report["kernel_checks"])
+    hard_rng = np.random.default_rng(45)
+
+    def hard_rnd(shape, dtype):        # the large shapes keep their draws
+        return torch.from_numpy(
+            hard_rng.standard_normal(shape)).to(dtype).to(dev)
+
+    # M off the 16/32/64 tiles, N off the 16-deep panels
+    for m in (1, 2, 17, 33, 65, 130):
+        for n in (2, 17, 100):
+            compare("covariance", [hard_rnd((3, m, n), f64)], JOB_TOL,
+                    "ragged")
+    # a large mean: the zero fill past N, left unmasked after centring,
+    # would add (padded k) * mu_i * mu_j ~ 1e6 to every entry
+    for shape in ((3, 65, 100), (2, 130, 17), (1, 33, 2)):
+        compare("covariance", [hard_rnd(shape, f64) + 1e3], JOB_TOL,
+                "offset +1e3")
+    # one element off a 16-byte boundary: the 8-byte copies
+    for shape in ((3, 33, 100), (2, 65, 17)):
+        view = hard_rnd(1 + int(np.prod(shape)), f64)[1:].view(shape)
+        compare("covariance", [view], JOB_TOL, "view off 16 B")
+    # axpy: ragged lengths, and x, y at offsets (elements) from the
+    # allocator's 512-byte alignment; z is fresh, so the 16-byte packs run
+    # only at (0, 0), the rest one element at a time
+    axpy_count = build.KERNELS["axpy"]
+    from repro_torch.kernels.axpy import axpy as axpy_wrapper
+    for dt in (f64, f32, bf16):
+        tol = JOB_TOL if dt == f64 else elem_tol[dt]
+        for n in (1, 7, 4097, (1 << 20) + 3):
+            compare("axpy", [hard_rnd(n, dt), hard_rnd(n, dt)], tol,
+                    "length")
+            for offs in ((1, 1), (3, 3), (1, 2), (0, 1)):
+                x, y = (hard_rnd(n + 3, dt)[o:o + n] for o in offs)
+                before = axpy_count.launches
+                got = axpy_wrapper(x, y, 2.5)
+                check(axpy_count.launches == before + 1,
+                      f"axpy offsets {offs}: not one launch")
+                held("axpy", f"offsets {offs}", got, ref.axpy(x, y, 2.5),
+                     tol, [[n], [n], [n]])
+    print(f"  {len(report['kernel_checks']) - hard} hard-case comparisons "
+          f"done", flush=True)
+
     print("== kernels: one large shape each", flush=True)
     # test_kernels.py's tolerances, except atax and bfloat16 covariance.
     # atax outputs reach ~1e4 here (A^T A x over 8192 rows), so f32 sums
@@ -1128,8 +1253,13 @@ def main() -> int:
                     warm = [dispatch(rt, job, operands, n=n) for _ in range(5)]
                     res = [dispatch(rt, job, Residency.RESIDENT, n=n)
                            for _ in range(5)]
+                    results = [got] + [w[0] for w in warm + res]
                     match = all(np.allclose(r, expected, **JOB_TOL)
-                                for r in [got] + [w[0] for w in warm + res])
+                                for r in results)
+                    if name == "covariance":     # exactly symmetric
+                        match = match and all(
+                            np.array_equal(r, np.swapaxes(r, -1, -2))
+                            for r in results)
                     err = float(np.max(np.abs(got - expected)))
                     check(match, f"{tag}: result off by {err:.3g}")
                     check(structure_ok(cname, counts, n),
@@ -1163,6 +1293,8 @@ def main() -> int:
             outs = rt._offload_fused(job, insts, n=8).wait_each()
             ms = (time.perf_counter() - t0) * 1e3
             ok = all(np.allclose(o, e, **JOB_TOL) for o, e in zip(outs, exps))
+            if name == "covariance":             # exactly symmetric
+                ok = ok and all(np.array_equal(o, o.T) for o in outs)
             counts = count_collectives(rt.plan(job, n=8, fuse=FUSE,
                                                args_shape=(FUSE, 8)).fn.trace)
             check(ok, f"fused {cname} {name}: results")
@@ -1284,9 +1416,11 @@ def main() -> int:
                      "replaces": k.replaces, "launches": launches[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
+                     "device_ms": row["device_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"],
+                     "library_device_ms": row["library_device_ms"],
                      "shapes": row["shapes"], "dtype": row["dtype"]})
     report["kernels"] = line
     report["failed"] = check.failed

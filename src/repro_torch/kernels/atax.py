@@ -46,11 +46,7 @@ def atax(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     g = partial_blocks(m, batch, sms)
     partial = torch.empty((batch, g, n), dtype=_b.acc_dtype(a.dtype),
                           device=a.device)
-    lib = _b.library()
-    with torch.cuda.device(a.device):
-        rc = lib.repro_atax(code, a.data_ptr(), x.data_ptr(),
-                            partial.data_ptr(), y.data_ptr(), batch, m, n, g,
-                            _b.stream_of(a))
-    _b.check_rc(rc, "atax")
+    _b.launch("atax", "repro_atax", a, code, a.data_ptr(), x.data_ptr(),
+              partial.data_ptr(), y.data_ptr(), batch, m, n, g)
     KERNEL.launches += 1
     return y

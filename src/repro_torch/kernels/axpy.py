@@ -24,12 +24,10 @@ def axpy(x: torch.Tensor, y: torch.Tensor, alpha: float) -> torch.Tensor:
         raise ValueError(f"axpy wants equal shapes, got {x.shape}, {y.shape}")
     code = _b.check_inputs("axpy", x, y)
     z = torch.empty_like(x)
-    if x.numel() == 0:
+    total = x.numel()
+    if total == 0:
         return z
-    lib = _b.library()
-    with torch.cuda.device(x.device):
-        rc = lib.repro_axpy(code, x.data_ptr(), y.data_ptr(), z.data_ptr(),
-                            float(alpha), x.numel(), _b.stream_of(x))
-    _b.check_rc(rc, "axpy")
+    _b.launch("axpy", "repro_axpy", x, code, x.data_ptr(), y.data_ptr(),
+              z.data_ptr(), float(alpha), total)
     KERNEL.launches += 1
     return z

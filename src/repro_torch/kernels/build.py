@@ -185,10 +185,6 @@ def library() -> ctypes.CDLL:
     return load(build().path)
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def check_rc(rc: int, kernel: str) -> None:
     """Raise on a refused launch (the C entry returns cudaGetLastError())."""
     if rc != 0:
@@ -198,7 +194,27 @@ def check_rc(rc: int, kernel: str) -> None:
 
 def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
     """Validate what every kernel takes: CUDA, one device, one supported
-    dtype, contiguous.  Returns the dtype code."""
+    dtype, contiguous.  Returns the dtype code.
+
+    One pass that reads each tensor's device index, dtype and layout once;
+    the reason for a refusal is worked out only when there is one."""
+    first = tensors[0]
+    dtype, index = first.dtype, first.get_device()   # -1 on the CPU
+    for t in tensors:
+        if (t.get_device() != index or t.dtype != dtype
+                or not t.is_contiguous()):
+            _refuse(kernel, tensors)
+    if index < 0:
+        _refuse(kernel, tensors)
+    code = DTYPE_CODES.get(dtype)
+    if code is None:
+        raise ValueError(
+            f"{kernel} kernel takes {sorted(map(str, DTYPE_CODES))}, "
+            f"got {dtype}")
+    return code
+
+
+def _refuse(kernel: str, tensors) -> None:
     first = tensors[0]
     for t in tensors:
         if not t.is_cuda:
@@ -209,12 +225,30 @@ def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
             raise ValueError(f"{kernel}: dtypes {first.dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel} kernel needs contiguous tensors")
-    code = DTYPE_CODES.get(first.dtype)
-    if code is None:
-        raise ValueError(
-            f"{kernel} kernel takes {sorted(map(str, DTYPE_CODES))}, "
-            f"got {first.dtype}")
-    return code
+    raise AssertionError("unreachable: check_inputs found no fault")
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str):
+    """The C entry point ``name`` of the kernel library (built on first
+    use)."""
+    return getattr(library(), name)
+
+
+def launch(kernel: str, name: str, t: torch.Tensor, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and the current stream
+    of ``t``'s device, with that device current, and raise if the launch was
+    refused.  The device is switched only when it is not the current one
+    already."""
+    fn = entry(name)
+    index = t.get_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    if index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
+    check_rc(rc, kernel)
 
 
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:

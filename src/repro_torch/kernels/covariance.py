@@ -36,11 +36,7 @@ def covariance(data: torch.Tensor) -> torch.Tensor:
         return out
     mean = torch.empty((batch, m), dtype=_b.acc_dtype(data.dtype),
                        device=data.device)
-    lib = _b.library()
-    with torch.cuda.device(data.device):
-        rc = lib.repro_covariance(code, data.data_ptr(), mean.data_ptr(),
-                                  out.data_ptr(), batch, m, n,
-                                  _b.stream_of(data))
-    _b.check_rc(rc, "covariance")
+    _b.launch("covariance", "repro_covariance", data, code, data.data_ptr(),
+              mean.data_ptr(), out.data_ptr(), batch, m, n)
     KERNEL.launches += 1
     return out

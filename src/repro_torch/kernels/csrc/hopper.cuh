@@ -1,7 +1,7 @@
 // Hopper building blocks for the port's tensor-core kernels (sm_90a only):
 // mbarriers, TMA tensor maps and loads, wgmma descriptors and instructions
 // (flash_attention.cu), and cp.async copies and fp64 mma.sync (DMMA,
-// matmul.cu).  Plain inline PTX, no CUTLASS.
+// matmul.cu and covariance.cu).  Plain inline PTX, no CUTLASS.
 //
 // Shared-memory tiles that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B are
 // rows of 128 bytes (64 bf16), 1024-byte aligned, the 16-byte chunk index
@@ -241,6 +241,26 @@ __device__ __forceinline__ void cp_async_8(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// two doubles of row r, columns c and c + 1, of a (rows x cols) matrix with
+// leading dimension ld into shared memory, zeros past the edges: one 16-byte
+// copy where `vec` (ld and c even, base 16-byte aligned), else two of 8
+__device__ __forceinline__ void cp_async_f64x2(double* dst, const double* src,
+                                               int r, int c, int rows, int cols,
+                                               int ld, bool vec) {
+  const bool rin = r < rows;
+  if (vec) {
+    const int n = rin ? max(0, min(2, cols - c)) : 0;
+    cp_async_16(dst, n ? src + (long long)r * ld + c : src, 8 * n);
+  } else {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = rin && c + h < cols;
+      cp_async_8(dst + h, in ? src + (long long)r * ld + c + h : src,
+                 in ? 8 : 0);
+    }
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -110,25 +110,6 @@ struct Cfg {
   static constexpr size_t SMEM = sizeof(double) * STAGES * (A_ELEMS + B_ELEMS);
 };
 
-// two doubles of row r, columns c and c + 1, of a (rows x cols) matrix with
-// leading dimension ld into shared memory; zeros past the edges
-__device__ __forceinline__ void copy2(double* dst, const double* src, int r,
-                                      int c, int rows, int cols, int ld,
-                                      bool vec) {
-  const bool rin = r < rows;
-  if (vec) {   // ld and c even, base 16-byte aligned
-    const int n = rin ? max(0, min(2, cols - c)) : 0;
-    cp_async_16(dst, n ? src + (long long)r * ld + c : src, 8 * n);
-  } else {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool in = rin && c + h < cols;
-      cp_async_8(dst + h, in ? src + (long long)r * ld + c + h : src,
-                 in ? 8 : 0);
-    }
-  }
-}
-
 template <int BM, int WM, int WN, int STAGES>
 __global__ void __launch_bounds__(Cfg<BM, WM, WN, STAGES>::THREADS)
 matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
@@ -156,11 +137,11 @@ matmul_dmma_kernel(const double* __restrict__ A, const double* __restrict__ B,
     double* bs = Bs + stage * G::B_ELEMS;
     for (int e = tid; e < BM * BK / 2; e += G::THREADS) {
       const int r = e / (BK / 2), c = (e % (BK / 2)) * 2;
-      copy2(as + r * APAD + c, A, row0 + r, k0 + c, M, K, K, vec);
+      cp_async_f64x2(as + r * APAD + c, A, row0 + r, k0 + c, M, K, K, vec);
     }
     for (int e = tid; e < BK * BN / 2; e += G::THREADS) {
       const int r = e / (BN / 2), c = (e % (BN / 2)) * 2;
-      copy2(bs + r * BPAD + c, B, k0 + r, col0 + c, K, N, N, vec);
+      cp_async_f64x2(bs + r * BPAD + c, B, k0 + r, col0 + c, K, N, N, vec);
     }
   };
 

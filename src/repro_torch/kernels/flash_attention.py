@@ -51,12 +51,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # TMA reads from 16-byte aligned addresses only; a view may start
     # anywhere
     q, k, v = (_aligned(t) for t in (q, k, v))
-    lib = _b.library()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_attention(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, hq, hkv, sq, skv, d, int(bool(causal)), _b.stream_of(q))
-    _b.check_rc(rc, "flash_attention")
+    _b.launch("flash_attention", "repro_flash_attention", q, code,
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
+              hkv, sq, skv, d, int(bool(causal)))
     KERNEL.launches += 1
     return o
 
@@ -77,9 +74,6 @@ def qk_tile(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     _b.check_inputs("qk_tile", q, k)
     q, k = _aligned(q), _aligned(k)
     s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
-    lib = _b.library()
-    with torch.cuda.device(q.device):
-        rc = lib.repro_flash_qk_tile(q.data_ptr(), k.data_ptr(), s.data_ptr(),
-                                     q.shape[1], _b.stream_of(q))
-    _b.check_rc(rc, "flash_attention qk_tile")
+    _b.launch("flash_attention qk_tile", "repro_flash_qk_tile", q,
+              q.data_ptr(), k.data_ptr(), s.data_ptr(), q.shape[1])
     return s

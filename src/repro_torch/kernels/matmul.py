@@ -33,11 +33,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return c
     if k == 0:
         return c.zero_()
-    lib = _b.library()
-    with torch.cuda.device(a.device):
-        rc = lib.repro_matmul(code, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                              batch, m, n, k, m * k, k * n, m * n,
-                              _b.stream_of(a))
-    _b.check_rc(rc, "matmul")
+    _b.launch("matmul", "repro_matmul", a, code, a.data_ptr(), b.data_ptr(),
+              c.data_ptr(), batch, m, n, k, m * k, k * n, m * n)
     KERNEL.launches += 1
     return c

@@ -52,13 +52,9 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     y = torch.empty((bsz, s, d), dtype=a.dtype, device=a.device)
     h_last = (torch.empty((bsz, d, n), dtype=torch.float32, device=a.device)
               if return_state else None)
-    lib = _b.library()
-    with torch.cuda.device(a.device):
-        rc = lib.repro_ssm_scan(
-            code, a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(),
-            None if h_last is None else h_last.data_ptr(),
-            bsz, s, d, n, _b.stream_of(a))
-    _b.check_rc(rc, "ssm_scan")
+    _b.launch("ssm_scan", "repro_ssm_scan", a, code, a.data_ptr(),
+              b.data_ptr(), c.data_ptr(),
+              None if h0 is None else h0.data_ptr(), y.data_ptr(),
+              None if h_last is None else h_last.data_ptr(), bsz, s, d, n)
     KERNEL.launches += 1
     return (y, h_last) if return_state else y
