@@ -11,19 +11,25 @@ no JAX and nothing of the reference package.
 1. Header: the card's name and power limit, the kernels' build from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel),
    and a census of the built code's SASS (``cuobjdump -sass``: HGMMA,
-   HMMA, DMMA, UTMALDG and LDGSTS by kernel, to ``DIR/sass_census.json``);
-   the bf16 flash kernel must hold a tensor-core product, the fp64 matmul
-   and covariance DMMA.
+   HMMA, DMMA, UTMALDG, LDGSTS and UBLKCP by kernel, to
+   ``DIR/sass_census.json``); the bf16 flash kernel must hold a
+   tensor-core product, the fp64 matmul and covariance DMMA, atax the bulk
+   copy (UBLKCP).
 2. Kernels: every hand-written kernel against its plain PyTorch version on
    the card — at float64 at every shape the offload phase gives it, in
    float32/bfloat16 over ``tests/test_kernels.py``'s sweeps with that
    file's tolerances, the fp64 covariance SYRK's hard cases (ragged M and
    N, data offset by +1e3, a view off a 16-byte boundary; exactly
-   symmetric) and axpy's (ragged lengths, x, y and z at different offsets
-   from a 16-byte boundary) — and timed beside its plain version, one
-   PyTorch library call where one computes the same function, and its
-   bound at the offload phase's largest shapes (fp64 matmul also at the
-   n = 1 and 8 shards) and at one large standalone shape each.  Two times
+   symmetric), axpy's (ragged lengths, x, y and z at different offsets
+   from a 16-byte boundary) and atax's (ragged M and N in fp64, f32 and
+   bf16, batch 1 and 3, A and x off a 16-byte boundary; one launch each)
+   — and timed beside its plain version, one PyTorch library call where
+   one computes the same function (atax: two calls, ``torch.mv`` or
+   ``torch.bmm`` twice), and its bound at the offload phase's largest
+   shapes (fp64 matmul and atax also at the n = 1 and 8 shards) and at one
+   large standalone shape each; atax prints its launch plan and the
+   card's ``cudaOccupancyMaxActiveClusters`` for it, and must give the
+   same bits from two calls at every timed shape.  Two times
    each: "call ms", CUDA events around each single call (median of 30
    after warm-up), which holds the host's launch path; and "device ms",
    events around a run of back-to-back calls queued behind a sleep kernel
@@ -139,10 +145,21 @@ FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 #: the instructions each redesigned kernel must hold in its SASS (every
 #: instance, by the kernel's name): the bf16 flash kernel a tensor-core
-#: product, the fp64 matmul and covariance DMMA
+#: product, the fp64 matmul and covariance DMMA, atax the bulk copy
+#: (cp.async.bulk) that brings its row panels in
 SASS_NEEDS = {"flash_wgmma_kernel": ("HGMMA", "HMMA"),
               "matmul_dmma_kernel": ("DMMA",),
-              "cov_dmma_kernel": ("DMMA",)}
+              "cov_dmma_kernel": ("DMMA",),
+              "atax_cluster_kernel": ("UBLKCP",)}
+#: atax's hard cases (their own generator): M off the 8/4/2-row panels and
+#: below one, N giving slices of one chunk, ragged slices and rows whose
+#: bytes are not a multiple of 16; batch 1 and 3; fp64 at the job path's
+#: 1e-9, f32 at the sweep's 2e-3 (tests/test_kernels.py:63), bf16 at 1e-2
+#: (both sides sum in f32 and round to bf16 once: about one ulp)
+ATAX_HARD_M = (1, 2, 7, 17, 33, 130)
+ATAX_HARD_N = (1, 2, 17, 100, 4097)
+#: (batch, M, N) of the views one element off a 16-byte boundary
+ATAX_VIEWS = ((3, 33, 100), (1, 130, 4096), (2, 17, 4097))
 #: device ms: the inputs of one timed run rotate over at least this many
 #: bytes (4x the H100's 50 MB L2), so every call reads them from memory
 ROTATE_BYTES = 200e6
@@ -913,6 +930,7 @@ def main() -> int:
     )
     from repro_torch.core.policy import Residency, Staging
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.atax import card_plan as atax_plan
 
     # plain float32 products in full float32, as the kernels compute them
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1006,10 +1024,15 @@ def main() -> int:
             return lambda x, y: torch.add(y, x, alpha=2.5)
         if name == "matmul":
             return torch.matmul
-        if tensors[0].ndim != 2:
-            return None          # no single batched call for these two
         if name == "atax":       # two calls: A^T (A x)
-            return lambda a, x: torch.mv(a.T, torch.mv(a, x))
+            if tensors[0].ndim == 2:
+                return lambda a, x: torch.mv(a.T, torch.mv(a, x))
+            if tensors[0].ndim == 3:
+                return lambda a, x: torch.bmm(
+                    a.mT, torch.bmm(a, x.unsqueeze(-1)))
+            return None
+        if tensors[0].ndim != 2:
+            return None          # no single batched call for covariance
         return torch.cov
 
     def held(name, tag, got, want, tol, shapes):
@@ -1058,6 +1081,19 @@ def main() -> int:
                                     if lib is not None else None)
         del sets
         row["bound_ms"], row["bound_by"] = bound(name, tensors, dtype)
+        if name == "atax":
+            # the launch plan (its wave is the card's own count of the
+            # clusters it holds at once), and the same bits from two calls
+            *lead, m, n = tensors[0].shape
+            p = atax_plan(tensors[0].get_device(), int(np.prod(lead)), m, n,
+                          dtype)
+            row["plan"] = dataclasses.asdict(p)
+            print(f"  atax plan {tag} {row['shapes']} {dtype}: {p}; "
+                  f"cudaOccupancyMaxActiveClusters {p.wave}", flush=True)
+            same = torch.equal(kernel(*tensors), kernel(*tensors))
+            row["bit_identical"] = same
+            check(same, f"atax {tag} {row['shapes']} {dtype}: two calls "
+                        f"differ")
         report["kernel_times"].append(row)
         lib_s = ("-" if row["library_ms"] is None
                  else f"{row['library_ms']:.4f} (device "
@@ -1099,7 +1135,7 @@ def main() -> int:
                       f"{err:.3g}", flush=True)
         tensors = job_shapes(name, (), 8, fuse=FUSE)
         compare(name, tensors, JOB_TOL, f"job default n=8 B={FUSE}")
-        if name == "matmul":     # the other cluster counts' shards
+        if name in ("matmul", "atax"):    # the other cluster counts' shards
             for n in (1, 8):
                 timed(name, job_shapes(name, OFFLOAD_SIZES[name][1], n),
                       f"job large n={n}")
@@ -1140,7 +1176,8 @@ def main() -> int:
     n_sweep = sum(r["tag"] == "sweep" for r in report["kernel_checks"])
     print(f"  {n_sweep} sweep comparisons done", flush=True)
 
-    print("== kernels: the fp64 SYRK's and axpy's hard cases", flush=True)
+    print("== kernels: the fp64 SYRK's, axpy's and atax's hard cases",
+          flush=True)
     f64 = torch.float64
     hard = len(report["kernel_checks"])
     hard_rng = np.random.default_rng(45)
@@ -1181,6 +1218,35 @@ def main() -> int:
                       f"axpy offsets {offs}: not one launch")
                 held("axpy", f"offsets {offs}", got, ref.axpy(x, y, 2.5),
                      tol, [[n], [n], [n]])
+    # atax: every case one launch of the kernel, held to its plain version
+    atax_count = build.KERNELS["atax"]
+    from repro_torch.kernels.atax import atax as atax_wrapper
+    atax_rng = np.random.default_rng(46)
+    atax_tol = {f64: JOB_TOL, f32: dict(rtol=2e-3, atol=2e-3),
+                bf16: dict(rtol=1e-2, atol=1e-2)}
+
+    def atax_rnd(shape, dtype):
+        return torch.from_numpy(
+            atax_rng.standard_normal(shape)).to(dtype).to(dev)
+
+    def atax_case(a, x, tag):
+        before = atax_count.launches
+        got = atax_wrapper(a, x)
+        check(atax_count.launches == before + 1,
+              f"atax {tag} {list(a.shape)}: not one launch")
+        held("atax", tag, got, ref.atax(a, x), atax_tol[a.dtype],
+             [list(a.shape), list(x.shape)])
+
+    for dt in (f64, f32, bf16):
+        for m in ATAX_HARD_M:
+            for n in ATAX_HARD_N:
+                for b in (1, 3):
+                    atax_case(atax_rnd((b, m, n), dt), atax_rnd((b, n), dt),
+                              "ragged")
+        for b, m, n in ATAX_VIEWS:
+            a = atax_rnd(b * m * n + 1, dt)[1:].view(b, m, n)
+            x = atax_rnd(b * n + 1, dt)[1:].view(b, n)
+            atax_case(a, x, "view off 16 B")
     print(f"  {len(report['kernel_checks']) - hard} hard-case comparisons "
           f"done", flush=True)
 

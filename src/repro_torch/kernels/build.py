@@ -50,7 +50,10 @@ _D = ctypes.c_double
 SIGNATURES = {
     "repro_axpy": (_I, _P, _P, _P, _D, _L, _P),
     "repro_matmul": (_I, _P, _P, _P, _L, _I, _I, _I, _L, _L, _L, _P),
-    "repro_atax": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_atax": (_I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P),
+    "repro_atax_max_clusters": (_I, _I, _I, _I, _I, _I, _I,
+                                ctypes.POINTER(_I)),
     "repro_covariance": (_I, _P, _P, _P, _L, _I, _I, _P),
     "repro_flash_attention": (_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _P),
@@ -136,8 +139,9 @@ def build(*, verbose: bool = False) -> BuildResult:
 
 
 #: the SASS opcodes the census counts: wgmma (HGMMA) and mma.sync (HMMA)
-#: on bf16, DMMA on fp64, TMA loads (UTMALDG) and cp.async (LDGSTS)
-CENSUS_OPCODES = ("HGMMA", "HMMA", "DMMA", "UTMALDG", "LDGSTS")
+#: on bf16, DMMA on fp64, TMA loads (UTMALDG), cp.async (LDGSTS) and
+#: cp.async.bulk (UBLKCP)
+CENSUS_OPCODES = ("HGMMA", "HMMA", "DMMA", "UTMALDG", "LDGSTS", "UBLKCP")
 _SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
 

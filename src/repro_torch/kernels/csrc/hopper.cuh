@@ -1,7 +1,8 @@
-// Hopper building blocks for the port's tensor-core kernels (sm_90a only):
-// mbarriers, TMA tensor maps and loads, wgmma descriptors and instructions
-// (flash_attention.cu), and cp.async copies and fp64 mma.sync (DMMA,
-// matmul.cu and covariance.cu).  Plain inline PTX, no CUTLASS.
+// Hopper building blocks for the port's kernels (sm_90a only): mbarriers,
+// TMA tensor maps and loads, wgmma descriptors and instructions
+// (flash_attention.cu), cp.async copies and fp64 mma.sync (DMMA, matmul.cu
+// and covariance.cu), and bulk copies, cluster barriers and distributed
+// shared memory (atax.cu).  Plain inline PTX, no CUTLASS.
 //
 // Shared-memory tiles that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B are
 // rows of 128 bytes (64 bf16), 1024-byte aligned, the 16-byte chunk index
@@ -40,17 +41,31 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// CLUSTER: acquire at cluster scope, for a phase that other CTAs of the
+// cluster complete (st_async); else at CTA scope (the default)
+template <bool CLUSTER = false>
 __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(addr), "r"(parity)
-      : "memory");
+  if (CLUSTER)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  else
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   return done != 0;
 }
 
@@ -63,12 +78,13 @@ __device__ __forceinline__ uint64_t global_ns() {
 // wait until the phase of parity `parity` has completed.  A wait that
 // lasts 10 s can only be a broken pipeline: it traps, and the launch fails
 // with an error instead of holding the card.
+template <bool CLUSTER = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  if (mbar_try_wait(addr, parity)) return;
+  if (mbar_try_wait<CLUSTER>(addr, parity)) return;
   const uint64_t t0 = global_ns();
   for (uint32_t n = 1;; ++n) {
-    if (mbar_try_wait(addr, parity)) return;
+    if (mbar_try_wait<CLUSTER>(addr, parity)) return;
     if (!(n & 1023) && global_ns() - t0 > 10000000000ull) __trap();
   }
 }
@@ -85,6 +101,74 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global to shared memory with one bulk copy; the mbarrier counts them
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- thread-block clusters and distributed shared memory ------------------------
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return n;
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// index of this CTA's cluster along x (the kernels here launch 1-D grids)
+__device__ __forceinline__ uint32_t cluster_index() {
+  uint32_t c;
+  asm volatile("mov.u32 %0, %%clusterid.x;" : "=r"(c));
+  return c;
+}
+
+// every thread of every CTA of the cluster arrives (release: its writes to
+// shared memory are seen by the peers) and waits for all (acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the address of `p` (this CTA's shared memory) in the CTA of rank `rank`
+__device__ __forceinline__ uint32_t map_rank(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// store v into a CTA of the cluster (address and mbarrier from map_rank);
+// that CTA's mbarrier counts the bytes, and a wait on it with
+// mbar_wait<true> sees the value
+__device__ __forceinline__ void st_async(uint32_t addr, double v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f64 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "d"(v), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(addr),
+      "f"(v), "r"(bar)
       : "memory");
 }
 

@@ -113,6 +113,8 @@ _LISTING = """
         /*0190*/                   DMMA.884 R14, R10, R12, R14 ;
 \t\tFunction : _Z11axpy_kernelIdEvv
         /*0000*/                   FFMA R1, R2, R3, R4 ;
+\t\tFunction : _ZN12_GLOBAL__N_119atax_cluster_kernelIdLi8ELi1EEEvv
+        /*0200*/              @P0  UBLKCP.S.G [UR4], [UR6], UR8 ;
 """
 
 
@@ -120,11 +122,13 @@ def test_sass_census_counts_each_function():
     census = t_build.parse_sass(_LISTING)
     assert census == {
         "_ZN2tc18flash_wgmma_kernelILi128EEEv":
-            dict(HGMMA=2, HMMA=0, DMMA=0, UTMALDG=1, LDGSTS=0),
+            dict(HGMMA=2, HMMA=0, DMMA=0, UTMALDG=1, LDGSTS=0, UBLKCP=0),
         "_ZN4dmma18matmul_dmma_kernelILi32EEEv":
-            dict(HGMMA=0, HMMA=0, DMMA=2, UTMALDG=0, LDGSTS=1),
+            dict(HGMMA=0, HMMA=0, DMMA=2, UTMALDG=0, LDGSTS=1, UBLKCP=0),
         "_Z11axpy_kernelIdEvv":
-            dict(HGMMA=0, HMMA=0, DMMA=0, UTMALDG=0, LDGSTS=0),
+            dict(HGMMA=0, HMMA=0, DMMA=0, UTMALDG=0, LDGSTS=0, UBLKCP=0),
+        "_ZN12_GLOBAL__N_119atax_cluster_kernelIdLi8ELi1EEEvv":
+            dict(HGMMA=0, HMMA=0, DMMA=0, UTMALDG=0, LDGSTS=0, UBLKCP=1),
     }
 
 
