@@ -911,6 +911,386 @@ def ssm_serving_phase(check, report):
     return launches
 
 
+def _intervals_ms(intervals):
+    """Merge (start, end) intervals; returns the sorted disjoint list."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def copy_kernel_overlap_ms(prof):
+    """(ms in which a host-to-device copy ran while a kernel ran, ms of
+    host-to-device copies, ms of kernels) from a ``torch.profiler`` trace,
+    or ``None`` when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    copies, kernels = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start / 1e3, e.time_range.end / 1e3)
+        if "HtoD" in e.name:
+            copies.append(span)
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append(span)
+    if not copies and not kernels:
+        return None
+    c, k = _intervals_ms(copies), _intervals_ms(kernels)
+    both, i, j = 0.0, 0, 0
+    while i < len(c) and j < len(k):
+        both += max(0.0, min(c[i][1], k[j][1]) - max(c[i][0], k[j][0]))
+        if c[i][1] < k[j][1]:
+            i += 1
+        else:
+            j += 1
+    return (both, sum(b - a for a, b in c), sum(b - a for a, b in k))
+
+
+def session_phase(check, report, device=None, sizes=None,
+                  overlap_sizes=None):
+    """The session layer on the card: ``Session()`` with 32 logical
+    clusters, every job at the offload phase's larger size.
+
+    1. AUTO single submit, a list of 8, ``stage()`` + a RESIDENT submit
+       per job, each result at rtol=atol=1e-9 against ``make_instance``;
+       the kernel of each job launched once per dispatch.
+    2. The overlap: 8 fresh singles of covariance and atax with AUTO's
+       window open (depth 2), then with it pinned to 1 — wall time and the
+       ms in which host-to-device copies ran during a kernel.
+    3. ``submit_graph``: an axpy chain and diamond and a matmul diamond,
+       bit-identical to one-by-one submits; d2h only at fetch nodes.
+    4. One retry-policy submit under a dropped arrival, recovered in the
+       attempts the CPU test pins.
+    5. The session's host cost per single submit against a bare
+       ``OffloadRuntime.offload``.
+
+    ``device``/``sizes`` default to the card and the offload phase's
+    larger sizes (a CPU rehearsal passes smaller ones).  Returns the
+    kernels' launch counts over the phase.
+    """
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import (
+        FaultInjector, FaultKind, FaultPlan, FaultSpec, GraphNode,
+        OffloadPolicy, OffloadRuntime, Ref, Residency, RetryPolicy, Session,
+    )
+    from repro_torch.core import jobs
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    sizes = sizes or {k: v[1] for k, v in OFFLOAD_SIZES.items()}
+    overlap_sizes = overlap_sizes or {"covariance": sizes["covariance"],
+                                      "atax": sizes["atax"]}
+    out = report.setdefault("session", {})
+    build.reset_counts()
+
+    def held(tag, got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        err = float(np.max(np.abs(got - want))) if got.size else 0.0
+        ok = got.shape == want.shape and bool(np.allclose(got, want,
+                                                          **JOB_TOL))
+        check(ok, f"session {tag}: off by {err:.3g}")
+        return err
+
+    def decision(d):
+        return {"staging": d.staging.value, "fuse": d.fuse,
+                "window": d.window, "residency": d.residency.value}
+
+    print("== session: Session() on the card, every job at the larger "
+          "size", flush=True)
+    out["jobs"] = []
+    explained = False
+    for name in jobs.PAPER_JOBS:
+        job = jobs.PAPER_JOBS[name](*sizes[name])
+        insts, exps = jobs.make_instances(job, 9, seed0=20)
+        before = build.launch_counts()
+        sess = Session(device) if device is not None else Session()
+        check(sess.num_clusters == 32 and (device is not None
+                                           or sess.device.type == "cuda"),
+              f"session {name}: not 32 clusters on the card")
+        t0 = time.perf_counter()
+        h = sess.submit(job, insts[0])
+        err = held(f"{name} single", h.wait(), exps[0])
+        single_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        hm = sess.submit(job, insts[1:])
+        errs = [held(f"{name} list {i}", r, e)
+                for i, (r, e) in enumerate(zip(hm.wait(), exps[1:]))]
+        list_ms = (time.perf_counter() - t0) * 1e3
+        staged = sess.stage(job, insts[0])
+        hr = sess.submit(job, Residency.RESIDENT)
+        errs.append(held(f"{name} resident", hr.wait(), exps[0]))
+        if device is None:
+            torch.cuda.synchronize()
+        after = build.launch_counts()
+        stats = sess.stats
+        delta = {k: after[k] - before[k] for k in after}
+        want = {k: (stats.dispatches if k == name else 0) for k in KERNEL_JOBS}
+        got = {k: delta[k] for k in KERNEL_JOBS}
+        check(got == want, f"session {name}: kernel launches {got} for "
+                           f"{stats.dispatches} dispatches")
+        row = {"job": job.spec.name, "single": decision(h.decision),
+               "list": decision(hm.decision), "stage": decision(staged),
+               "resident": decision(hr.decision),
+               "max_abs_err": max([err] + errs), "single_ms": single_ms,
+               "list_ms": list_ms, "launches": got,
+               "stats": dataclasses.asdict(stats)}
+        out["jobs"].append(row)
+        print(f"  {job.spec.name:28s} single {row['single']}  list "
+              f"{row['list']}  resident {row['resident']}; err "
+              f"{row['max_abs_err']:.2g}; single {single_ms:.2f} ms, list "
+              f"of 8 {list_ms:.2f} ms; launches {got}", flush=True)
+        print(f"    stats {dict((k, v) for k, v in row['stats'].items() if v)}",
+              flush=True)
+        if name == "covariance" and not explained:
+            print("    " + str(hm.explain()).replace("\n", "\n    "),
+                  flush=True)
+            explained = True
+        sess.close()
+        del sess, h, hm, hr
+    if device is None:
+        torch.cuda.empty_cache()
+
+    print("== session: 8 fresh singles, window open vs pinned to 1",
+          flush=True)
+    out["overlap"] = []
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if device is None else [])
+
+    def singles(sess, job, insts, pol, serial):
+        """8 singles: all submitted, then all waited (``serial``: each
+        waited before the next is submitted); returns results, wall ms."""
+        t0 = time.perf_counter()
+        if serial:
+            res = [sess.submit(job, ops, policy=pol).wait() for ops in insts]
+        else:
+            hs = [sess.submit(job, ops, policy=pol) for ops in insts]
+            res = [h.wait() for h in hs]
+        return res, (time.perf_counter() - t0) * 1e3
+
+    variants = (("open", OffloadPolicy(), False),
+                ("window=1", OffloadPolicy(window=1), False),
+                ("submit+wait", OffloadPolicy(window=1), True))
+    rounds = 5
+    for name, size in overlap_sizes.items():
+        job = jobs.PAPER_JOBS[name](*size)
+        insts, exps = jobs.make_instances(job, 8, seed0=40)
+        sessions = {label: (Session(device) if device is not None
+                            else Session()) for label, _, _ in variants}
+        walls = {label: [] for label, _, _ in variants}
+        errs = {label: [] for label, _, _ in variants}
+        # one pass each to allocate the pinned and device buffers its
+        # window holds, then the variants in turns (the host's noise moves
+        # a pass by tens of percent between calls, PERF.md §7)
+        for rnd in range(rounds + 1):
+            for label, pol, serial in variants:
+                res, wall = singles(sessions[label], job, insts, pol,
+                                    serial)
+                errs[label] += [held(f"overlap {name} {label} {i}", r, e)
+                                for i, (r, e) in enumerate(zip(res, exps))]
+                if rnd:
+                    walls[label].append(wall)
+        for label, pol, serial in variants:
+            sess = sessions[label]
+            with profile(activities=activities) as prof:
+                res, _ = singles(sess, job, insts, pol, serial)
+            ov = copy_kernel_overlap_ms(prof)
+            stream = next(iter(sess._streams.values()))
+            row = {"job": job.spec.name, "policy": label,
+                   "window": stream.window,
+                   "wall_ms": statistics.median(walls[label]),
+                   "walls_ms": walls[label],
+                   "max_abs_err": max(errs[label]),
+                   "h2d_during_kernel_ms": None if ov is None else ov[0],
+                   "h2d_ms": None if ov is None else ov[1],
+                   "kernel_ms": None if ov is None else ov[2],
+                   "window_stalls": stream.stats["window_stalls"]}
+            out["overlap"].append(row)
+            ov_s = ("not measured (no device events in the trace)"
+                    if ov is None else
+                    f"profiled pass: h2d during kernels {ov[0]:.3f} ms of "
+                    f"h2d {ov[1]:.3f} ms, kernels {ov[2]:.3f} ms")
+            print(f"  {job.spec.name:24s} {label:11s} window "
+                  f"{row['window']}: 8 singles, median of {rounds} "
+                  f"{row['wall_ms']:.2f} ms wall "
+                  f"({', '.join(f'{w:.1f}' for w in walls[label])}); "
+                  f"{ov_s}", flush=True)
+            sess.close()
+        del sessions, res
+        if device is None:
+            torch.cuda.empty_cache()
+    walls = {(r["job"], r["policy"]): r["wall_ms"] for r in out["overlap"]}
+    for name, size in overlap_sizes.items():
+        jname = jobs.PAPER_JOBS[name](*size).spec.name
+        ratio = walls[(jname, "open")] / walls[(jname, "window=1")]
+        out.setdefault("open_over_closed", {})[jname] = ratio
+        print(f"  {jname}: open / window=1 wall = {ratio:.3f} (submit+wait "
+              f"/ window=1 = {walls[(jname, 'submit+wait')] / walls[(jname, 'window=1')]:.3f})",
+              flush=True)
+
+    print("== session: submit_graph at full size", flush=True)
+    out["graphs"] = []
+
+    def graph_case(tag, job, build_nodes, sequential):
+        sess = Session(device) if device is not None else Session()
+        nodes = build_nodes()
+        gh = sess.submit_graph(nodes)
+        res = gh.wait()
+        st = sess.stats
+        fetched = sum(np.asarray(v).nbytes for v in res.values())
+        check(st.d2h_bytes == fetched,
+              f"graph {tag}: d2h {st.d2h_bytes} != fetched {fetched}")
+        seq = sequential()
+        same = all(np.array_equal(np.asarray(res[k]), np.asarray(seq[k]))
+                   for k in res)
+        check(same and sorted(res) == sorted(seq),
+              f"graph {tag}: not bit-identical to one-by-one submits")
+        row = {"graph": tag, "fetched": sorted(map(str, res)),
+               "bit_identical": same, "issue_order": gh.issue_order,
+               "max_inflight": gh.max_inflight,
+               "forwarded": {f"{a},{b},{c}": v
+                             for (a, b, c), v in gh.forwarded.items()},
+               "stats": dataclasses.asdict(st)}
+        out["graphs"].append(row)
+        print(f"  {tag:18s} fetched {row['fetched']}: bit-identical {same}; "
+              f"d2h {st.d2h_bytes} B (fetch nodes only), forwards "
+              f"{st.forwards}, forward_bytes {st.forward_bytes}, renames "
+              f"{st.renames}; issue {gh.issue_order}, max in flight "
+              f"{gh.max_inflight}", flush=True)
+        sess.close()
+
+    def one_by_one(plan):
+        """Run (node name, job, operands-with-names, selection) one submit
+        at a time, fetching every result to the host and resubmitting it."""
+        sess = Session(device) if device is not None else Session()
+        done = {}
+        for key, job, ops, sel in plan:
+            ops = {k: (done[v] if isinstance(v, str) else v)
+                   for k, v in ops.items()}
+            done[key] = sess.submit(job, ops, **sel).wait()
+        sess.close()
+        return done
+
+    axpy = jobs.make_axpy(*sizes["axpy"])
+    aops, _ = axpy.make_instance(0)
+    K = 8
+    graph_case(
+        "axpy chain K=8", axpy,
+        lambda: [GraphNode(axpy, aops, name="n0")] + [
+            GraphNode(axpy, {"x": aops["x"], "y": Ref(f"n{k - 1}")},
+                      name=f"n{k}") for k in range(1, K)],
+        lambda: {f"n{K - 1}": one_by_one(
+            [("n0", axpy, dict(aops), {})]
+            + [(f"n{k}", axpy, {"x": aops["x"], "y": f"n{k - 1}"}, {})
+               for k in range(1, K)])[f"n{K - 1}"]})
+    half = [list(range(16)), list(range(16, 32))]
+    graph_case(
+        "axpy diamond", axpy,
+        lambda: [GraphNode(axpy, aops, name="src"),
+                 GraphNode(axpy, {"x": aops["x"], "y": Ref("src")},
+                           name="l", clusters=half[0]),
+                 GraphNode(axpy, {"x": aops["x"], "y": Ref("src")},
+                           name="r", clusters=half[1]),
+                 GraphNode(axpy, {"x": Ref("l"), "y": Ref("r")},
+                           name="join")],
+        lambda: {"join": one_by_one(
+            [("src", axpy, dict(aops), {}),
+             ("l", axpy, {"x": aops["x"], "y": "src"},
+              {"clusters": half[0]}),
+             ("r", axpy, {"x": aops["x"], "y": "src"},
+              {"clusters": half[1]}),
+             ("join", axpy, {"x": "l", "y": "r"}, {})])["join"]})
+    mm = jobs.make_matmul(*sizes["matmul"])
+    mops, _ = mm.make_instance(1)
+    graph_case(
+        "matmul diamond", mm,
+        lambda: [GraphNode(mm, mops, name="m0"),
+                 GraphNode(mm, {"A": Ref("m0"), "B": mops["B"]}, name="l",
+                           clusters=half[0]),
+                 GraphNode(mm, {"A": mops["A"], "B": Ref("m0")}, name="r",
+                           clusters=half[1]),
+                 GraphNode(mm, {"A": Ref("l"), "B": Ref("r")},
+                           name="join")],
+        lambda: {"join": one_by_one(
+            [("m0", mm, dict(mops), {}),
+             ("l", mm, {"A": "m0", "B": mops["B"]}, {"clusters": half[0]}),
+             ("r", mm, {"A": mops["A"], "B": "m0"}, {"clusters": half[1]}),
+             ("join", mm, {"A": "l", "B": "r"}, {})])["join"]})
+
+    print("== session: a retry-policy submit under a dropped arrival",
+          flush=True)
+    inj = FaultInjector(FaultPlan([FaultSpec(FaultKind.LOST_ARRIVAL,
+                                             at_dispatch=0, count=1)]))
+    sess = (Session(device, faults=inj, policy=OffloadPolicy(
+        retry=RetryPolicy())) if device is not None else
+        Session(faults=inj, policy=OffloadPolicy(retry=RetryPolicy())))
+    aops, aexp = axpy.make_instance(3)
+    # n=8: the ladder's bisection probe (an axpy of faults.PROBE_N = 840
+    # elements, as in the reference) splits over at most 8 clusters
+    err = held("retry", sess.submit(axpy, dict(aops), n=8).wait(), aexp)
+    hl = sess.health()
+    rungs = (hl.deadline_trips, hl.retries, hl.probes, hl.backups)
+    # tests/test_torch_fabric.py pins the same rungs for a lost arrival
+    check(rungs == (1, 1, 1, 0) and hl.jobs_ok == 1 and hl.jobs_failed == 0,
+          f"retry: rungs {rungs}, ok {hl.jobs_ok}, failed {hl.jobs_failed}")
+    out["retry"] = {"rungs": rungs, "jobs_ok": hl.jobs_ok,
+                    "max_abs_err": err,
+                    "health": dataclasses.asdict(hl)}
+    print(f"  axpy n=8: recovered, err {err:.2g}; (trips, retries, probes, "
+          f"backups) = {rungs}", flush=True)
+    sess.close()
+
+    print("== session: host cost of a single submit", flush=True)
+    small = jobs.make_axpy()
+    sops, _ = small.make_instance(0)
+    sess = Session(device) if device is not None else Session()
+    rt = OffloadRuntime(device) if device is not None else OffloadRuntime()
+    sess.stage(small, sops)
+    rt.plan(small, sops, n=32).stage(sops)
+    costs = {}
+    for label, fn in (
+            ("session", lambda: sess.submit(small, Residency.RESIDENT,
+                                            policy=OffloadPolicy(window=1))),
+            ("runtime", lambda: rt.offload(small, Residency.RESIDENT,
+                                           n=32))):
+        for _ in range(5):
+            fn().wait()
+        submit_us, total_us = [], []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            h = fn()
+            t1 = time.perf_counter()
+            h.wait()
+            t2 = time.perf_counter()
+            submit_us.append((t1 - t0) * 1e6)
+            total_us.append((t2 - t0) * 1e6)
+        costs[label] = {"submit_us": statistics.median(submit_us),
+                        "submit_wait_us": statistics.median(total_us)}
+    costs["session_over_runtime_us"] = (
+        costs["session"]["submit_us"] - costs["runtime"]["submit_us"])
+    out["host_cost"] = costs
+    print(f"  axpy default n=32 resident: session submit "
+          f"{costs['session']['submit_us']:.1f} us (+wait "
+          f"{costs['session']['submit_wait_us']:.1f}), runtime offload "
+          f"{costs['runtime']['submit_us']:.1f} us (+wait "
+          f"{costs['runtime']['submit_wait_us']:.1f}); session adds "
+          f"{costs['session_over_runtime_us']:.1f} us a submit", flush=True)
+    sess.close()
+    if device is None:
+        torch.cuda.synchronize()
+    launches = build.launch_counts()
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print("session kernels: " + " ".join(f"{k}={v}"
+                                         for k, v in launches.items()))
+    print(f"session phase: {out['seconds']:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"),
@@ -1453,6 +1833,13 @@ def main() -> int:
                   + "; ".join(f"{k[:40]} {us:.1f} us x{c}"
                               for k, us, c in row["top"]), flush=True)
         del rt
+    torch.cuda.empty_cache()
+
+    # -- 3c. the session layer over the same runtime ----------------------
+    session_launches = session_phase(check, report)
+    for name in KERNEL_JOBS:
+        check(session_launches[name] > 0,
+              f"the session path never launched the {name} kernel")
     torch.cuda.empty_cache()
 
     # -- 4-5. flash attention, then the serving path ----------------------

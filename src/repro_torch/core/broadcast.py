@@ -229,6 +229,18 @@ class Placement:
         a = self.axis
         return moved.reshape(moved.shape[:a] + (-1,) + moved.shape[a + 2:])
 
+    def tensor_to_clusters(self, t: torch.Tensor) -> torch.Tensor:
+        """A global-layout device tensor in cluster-major layout — the
+        device-side twin of :meth:`to_clusters`.  A view of ``t`` (a
+        replicated placement is a stride-0 expansion), never a copy."""
+        if self.axis is None:
+            return t.unsqueeze(0).expand((self.n,) + tuple(t.shape))
+        a = self.axis
+        self.shard_shape(t.shape)
+        split = t.reshape(tuple(t.shape[:a]) + (self.n, t.shape[a] // self.n)
+                          + tuple(t.shape[a + 1:]))
+        return split.movedim(a, 0)
+
 
 def host_tensor(arr: np.ndarray) -> torch.Tensor:
     """A CPU tensor over ``arr``'s data (copied only when it must be:
@@ -239,11 +251,26 @@ def host_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """One host->device transfer into a fresh buffer (never an alias of the
-    caller's array, on the CPU too)."""
+def staging_source(arr: np.ndarray, device: torch.device,
+                   pinned: bool = False) -> torch.Tensor:
+    """The host side of an upload to ``device``: ``arr``'s data, copied
+    into page-locked memory when ``pinned`` and the device is a card, so
+    the copy can run asynchronously on the current stream (the caller's
+    array may change as soon as this returns)."""
     src = host_tensor(arr)
-    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
+    if pinned and device.type == "cuda":
+        src = src.pin_memory()
+    return src
+
+
+def upload(arr: np.ndarray, device: torch.device,
+           pinned: bool = False) -> torch.Tensor:
+    """One host->device transfer into a fresh buffer (never an alias of the
+    caller's array, on the CPU too); ``pinned`` makes it asynchronous on
+    a card (:func:`staging_source`)."""
+    src = staging_source(arr, device, pinned)
+    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(
+        src, non_blocking=pinned)
 
 
 def synchronize(device: torch.device) -> None:
@@ -280,18 +307,20 @@ class TreeStager:
         self._root_row = rows([self._root])
 
     def put_replicated(self, arr: np.ndarray, *, reshard: bool = False,
-                       stats: Optional[Any] = None) -> torch.Tensor:
+                       stats: Optional[Any] = None,
+                       pinned: bool = False) -> torch.Tensor:
         """Stage ``arr`` replicated onto the clusters with ONE host upload.
 
         Returns the ``(n, *arr.shape)`` cluster-major tensor.
         ``stats.h2d_bytes`` grows by ``arr.nbytes`` and
         ``stats.d2d_bytes`` by ``(n-1) * arr.nbytes`` either way — the
-        logical link bytes of the strategy.
+        logical link bytes of the strategy.  ``pinned`` uploads from
+        page-locked memory, asynchronously (:func:`staging_source`).
         """
-        src = host_tensor(arr)
+        src = staging_source(arr, self.device, pinned)
         out = torch.empty((self._n,) + tuple(src.shape), dtype=src.dtype,
                           device=self.device)
-        out[self._root].copy_(src)
+        out[self._root].copy_(src, non_blocking=pinned)
         if stats is not None:
             stats.h2d_bytes += src.nbytes
             stats.d2d_bytes += src.nbytes * (self._n - 1)
@@ -300,6 +329,32 @@ class TreeStager:
         if reshard:
             out[self._others] = out.index_select(0, self._root_row)
             return out
+        for src_rows, dst_rows in self._levels:   # one batched copy a level
+            out[dst_rows] = out[src_rows]
+        return out
+
+    def forward_replicated(self, value: torch.Tensor, *,
+                           stats: Optional[Any] = None) -> torch.Tensor:
+        """Fan a *device-resident* producer result out replicated — the
+        forwarding counterpart of :meth:`put_replicated`.
+
+        ``value`` is a global-layout tensor on the device (a dependent
+        job's producer output, possibly still being computed: the copies
+        queue behind it on the stream).  One device copy puts it in the
+        root's row, then the same levelled fan-out runs; the host link is
+        never touched, so ``stats.h2d_bytes`` stays put and the whole
+        ``n * nbytes`` logical movement lands in ``stats.forward_bytes``
+        (and ``d2d_bytes`` — forwarding is fan-out traffic too), as in the
+        reference.  Returns the ``(n, *value.shape)`` cluster-major tensor.
+        """
+        n = self._n
+        nbytes = int(value.nbytes)
+        out = torch.empty((n,) + tuple(value.shape), dtype=value.dtype,
+                          device=self.device)
+        out[self._root].copy_(value)
+        if stats is not None:
+            stats.forward_bytes += nbytes * n
+            stats.d2d_bytes += nbytes * n
         for src_rows, dst_rows in self._levels:   # one batched copy a level
             out[dst_rows] = out[src_rows]
         return out

@@ -48,6 +48,14 @@ re-stages resident operands from its host references, as the reference
 does.  ``JobHandle.wait()`` fetches result and arrivals with one blocking
 synchronization.
 
+Dependent dispatch (``Session.submit_graph``) forwards a producer's
+result to a consumer device to device (:meth:`DispatchPlan.forward`).
+Results are global tensors here, so each handle carries its producer's
+:class:`ResultPlacement` (clusters, output axis, reduce class), and the
+forward makes the reference's sharding-equivalence decision from it:
+alias, rename copy, reshard or fan-out along the staging tree, with the
+same ``forwards``/``forward_bytes``/``renames``/``d2d_bytes`` counts.
+
 The launch trace replaces the reference's HLO checks: every built program
 records the steps of its last run (:meth:`OffloadRuntime.launch_trace`),
 and :func:`count_collectives` counts them under the reference's HLO
@@ -243,6 +251,16 @@ def _check_live(value: Any, what: str) -> Any:
     return value
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    """A tensor's dtype under numpy's name (what ``op_meta`` records)."""
+    return str(t.dtype).replace("torch.", "")
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a torch dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
 def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
     """Bring ``tensors`` to the host with ONE blocking synchronization."""
     if tensors[0].device.type != "cuda":
@@ -253,6 +271,35 @@ def _fetch(*tensors: torch.Tensor) -> List[np.ndarray]:
         h.copy_(t, non_blocking=True)
     torch.cuda.current_stream(tensors[0].device).synchronize()
     return [h.numpy() for h in hosts]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResultPlacement:
+    """Where a launch's result lies on the clusters that computed it — the
+    port's stand-in for the sharding a reference result carries.
+
+    Results are global tensors in the port; what the reference reads off
+    the result array (its device set and partition) this records from
+    the producing plan: the clusters, the sharded output axis (``None``
+    for a reduced or replicated result) and the reduce class.
+    :meth:`DispatchPlan.forward` decides alias, reshard or fan-out from
+    it exactly as the reference decides from sharding equivalence.
+    """
+
+    cluster_ids: Tuple[int, ...]
+    axis: Optional[int]
+    reduce: Optional[str] = None
+
+    def equivalent(self, cluster_ids: Sequence[int],
+                   axis: Optional[int]) -> bool:
+        """True when a consumer placement (``cluster_ids``, ``axis``) puts
+        every element where this result already lies — the reference's
+        ``Sharding.is_equivalent_to``: the same clusters in the same
+        order, and the same split (any split is the same on one cluster).
+        """
+        if tuple(cluster_ids) != self.cluster_ids:
+            return False
+        return len(self.cluster_ids) == 1 or axis == self.axis
 
 
 @dataclasses.dataclass
@@ -271,6 +318,11 @@ class JobHandle:
     _done: bool = False
     _retired: bool = False
     _fault: Optional[CompletionTimeout] = None
+
+    @property
+    def placement(self) -> Optional[ResultPlacement]:
+        """The result's placement (what a dependent job's forward reads)."""
+        return None if self.plan is None else self.plan.out_placement
 
     def _complete(self, arrivals: int) -> None:
         """Feed the completion unit, resolving any injected fault."""
@@ -396,6 +448,10 @@ class DispatchPlan:
                 )
             self.placements[name] = bc.Placement(
                 n, None if axis is None else axis + lead)
+        self.out_placement = ResultPlacement(
+            self.cluster_ids,
+            None if job.out_axis is None else job.out_axis + lead,
+            job.reduce)
 
         self.fn = runtime._build(
             job, self.cluster_ids, n,
@@ -431,27 +487,30 @@ class DispatchPlan:
         return self._stager
 
     def _put(self, arr: np.ndarray, placement: bc.Placement,
-             via: str) -> torch.Tensor:
+             via: str, pinned: bool = False) -> torch.Tensor:
         """One operand/args upload under a staging strategy, bytes counted.
 
         Sharded arrays cross the host link once regardless of mode (each
         cluster receives only its shard); the strategies differ only for
-        replicated arrays — the O(n) host-link offenders.
+        replicated arrays — the O(n) host-link offenders.  ``pinned``
+        uploads from page-locked memory, asynchronously on the current
+        stream (``bc.staging_source``).
         """
         n = self.n_clusters
         if not bc.is_replicated(placement):
             self.stats.h2d_bytes += arr.nbytes
-            return bc.upload(placement.to_clusters(arr), self.device)
+            return bc.upload(placement.to_clusters(arr), self.device, pinned)
         if via in bc.TREE_MODES:
             self.stats.tree_stages += 1
             return self._tree_stager().put_replicated(
-                arr, reshard=(via == "tree_reshard"), stats=self.stats)
+                arr, reshard=(via == "tree_reshard"), stats=self.stats,
+                pinned=pinned)
         # "direct" and "host_fanout": one host->device transfer per cluster
         # row.  "direct" issues them back to back, as one replicated
         # device_put does; "host_fanout" is the measurable O(n) baseline,
         # one outstanding at a time (the serialized host-link writes of
         # §4.1 — CVA6's outstanding-transaction budget)
-        src = bc.host_tensor(arr)
+        src = bc.staging_source(arr, self.device, pinned)
         buf = torch.empty((n,) + tuple(src.shape), dtype=src.dtype,
                           device=self.device)
         for row in buf:
@@ -471,7 +530,11 @@ class DispatchPlan:
         With ``slot=None`` (default) the buffers become *resident* — the
         warm ``offload(job, Residency.RESIDENT)`` path reuses them.  With a
         slot number they land in that numbered staging slot instead,
-        leaving residency untouched.
+        leaving residency untouched: the double-buffering hook
+        :class:`~repro_torch.core.stream.OffloadStream` uses to overlap
+        job k+1's upload with job k's compute.  Slot uploads come from
+        page-locked memory and are asynchronous on the current stream
+        (the stream issues them on a copy stream of its own).
 
         ``via`` picks the staging strategy for replicated operands (see
         ``STAGING_MODES``), defaulting to ``OffloadConfig.staging``.  With
@@ -497,7 +560,8 @@ class DispatchPlan:
                 raise ValueError(
                     f"operand {name} dtype {arr.dtype} != planned {dtype} "
                     "(a dtype change needs a new plan)")
-            staged[name] = self._put(arr, self.placements[name], via)
+            staged[name] = self._put(arr, self.placements[name], via,
+                                     pinned=slot is not None)
             self.stats.device_puts += 1
             if slot is None:
                 # donation restages from these refs later — snapshot caller
@@ -514,6 +578,118 @@ class DispatchPlan:
             for name, buf in staged.items():
                 s.track(buf, f"staged operand {name!r}")
         return staged
+
+    def forward(self, name: str, value: torch.Tensor, *,
+                source: Optional[ResultPlacement] = None,
+                rename: bool = False) -> Tuple[torch.Tensor, int]:
+        """Stage operand ``name`` from a *device-resident* producer result.
+
+        The device-to-device leg of dependent dispatch: ``value`` (a
+        global-layout tensor, possibly still being computed — the copies
+        queue behind it on the stream) is laid out for this plan's
+        operand placement without ever visiting the host.  ``source`` is
+        the producer's :class:`ResultPlacement` (``JobHandle.placement``);
+        the decision is the reference's:
+
+        * **alias** — the placements are equivalent: the consumer reads
+          the producer's buffer as it is (zero copies), unless ``rename``
+          or a donating config forces a fresh buffer (the WAR/WAW rename
+          that keeps the producer's result alive for its other readers);
+        * **fan-out** — a replicated consumer operand: one copy into the
+          tree root's row, then the levelled device copies;
+        * **reshard** — a sharded consumer operand: each shard crosses
+          the fabric once.
+
+        Returns ``(staged, nbytes)`` where ``nbytes`` is the logical d2d
+        byte count of this edge (also accumulated into
+        ``stats.forward_bytes``; ``stats.h2d_bytes``/``d2h_bytes`` do
+        not move — that is the point).  The counters equal the
+        reference's for the same graph.
+        """
+        names = tuple(n for n, _, _ in self.op_meta)
+        if name not in names:
+            raise ValueError(f"operand {name!r} not in plan {names}")
+        _check_live(value, f"forwarded operand {name!r}")
+        s = _san.active()
+        if s is not None:
+            s.read(value, f"forward of operand {name!r}")
+        shape, dtype = next((s_, d) for n, s_, d in self.op_meta
+                            if n == name)
+        if tuple(value.shape) != shape or _dtype_name(value) != dtype:
+            raise ValueError(
+                f"forwarded operand {name!r} is "
+                f"{tuple(value.shape)}/{_dtype_name(value)}, plan expects "
+                f"{shape}/{dtype}")
+        placement = self.placements[name]
+        must_rename = rename or self.runtime.config.donate_operands
+        moved = 0
+        if source is not None and source.equivalent(self.cluster_ids,
+                                                    placement.axis):
+            # same placement: alias (free) or rename-copy (cluster-local,
+            # so the logical link bytes stay zero — no fabric edge crossed)
+            staged = placement.tensor_to_clusters(value)
+            if must_rename:
+                staged = staged.clone(memory_format=torch.contiguous_format)
+                self.stats.renames += 1
+        elif bc.is_replicated(placement):
+            staged = self._tree_stager().forward_replicated(
+                value, stats=self.stats)
+            moved = int(value.nbytes) * self.n_clusters
+        else:
+            # sharded consumer: each shard crosses the fabric once, into a
+            # fresh buffer
+            staged = placement.tensor_to_clusters(value).clone(
+                memory_format=torch.contiguous_format)
+            moved = int(value.nbytes)
+            self.stats.forward_bytes += moved
+        self.stats.forwards += 1
+        if s is not None and staged is not value:
+            s.track(staged, f"forwarded operand {name!r}")
+        return staged, moved
+
+    def stage_renamed(self, operands: Dict[str, Any], *,
+                      via: Optional[Union[str, Staging]] = None,
+                      sources: Optional[Dict[str, ResultPlacement]] = None
+                      ) -> Tuple[Dict[str, torch.Tensor], Dict[str, int]]:
+        """Graph-node staging: host arrays *and* forwarded device tensors.
+
+        Every buffer is fresh (renamed) — residency and stream slots are
+        never overwritten, so a graph node whose operands collide with a
+        resident buffer or an earlier node's staging proceeds instead of
+        stalling (the WAW side of the scoreboard's renaming).  Host
+        arrays take the ordinary :meth:`_put` path under ``via``; device
+        tensors take :meth:`forward` with their producer's placement from
+        ``sources``.  Returns ``(staged, forwarded_bytes_per_operand)``.
+        """
+        via = self._resolve_via(via)
+        sources = sources or {}
+        names = tuple(sorted(operands))
+        if names != tuple(name for name, _, _ in self.op_meta):
+            raise ValueError(
+                f"operand names {names} do not match plan {self.op_meta}")
+        staged: Dict[str, torch.Tensor] = {}
+        fwd_bytes: Dict[str, int] = {}
+        for name, shape, dtype in self.op_meta:
+            value = operands[name]
+            if isinstance(value, torch.Tensor):
+                staged[name], fwd_bytes[name] = self.forward(
+                    name, value, source=sources.get(name))
+            else:
+                arr = np.asarray(value)
+                if tuple(arr.shape) != shape:
+                    raise ValueError(
+                        f"operand {name} shape {arr.shape} != planned "
+                        f"{shape}")
+                if str(arr.dtype) != dtype:
+                    raise ValueError(
+                        f"operand {name} dtype {arr.dtype} != planned "
+                        f"{dtype}")
+                staged[name] = self._put(arr, self.placements[name], via)
+                self.stats.device_puts += 1
+                s = _san.active()
+                if s is not None:
+                    s.track(staged[name], f"renamed operand {name!r}")
+        return staged, fwd_bytes
 
     def invalidate(self, names: Optional[Sequence[str]] = None) -> None:
         """Drop resident operand buffers (all, or a named subset)."""
@@ -842,10 +1018,16 @@ class OffloadRuntime:
         clusters: Optional[Sequence[int]] = None,
         batch: Optional[int] = None,
     ) -> FusedHandle:
-        """Fuse B instances of ``job`` into one launch (see
-        :meth:`_offload_fused`).  The reference deprecates this entry
-        point in favour of its session API, which the port does not have
-        yet, so here it does not warn."""
+        """Deprecated direct entry point — fuse B instances into one
+        launch (see :meth:`_offload_fused`).
+
+        The session API subsumes this: ``Session.submit(job, instances,
+        policy=OffloadPolicy(fuse=B))`` (or ``policy=AUTO`` to let the
+        planner pick B).  Kept as a warning shim over the same
+        implementation, as in the reference.
+        """
+        warn_legacy("direct OffloadRuntime.offload_fused()",
+                    "Session.submit(job, instances, policy=...)")
         return self._offload_fused(job, instances, job_args=job_args, n=n,
                                    request=request, clusters=clusters,
                                    batch=batch)

@@ -839,6 +839,211 @@ def fabric_makespan_model(workloads: Sequence[TenantWorkload],
     return max(bounds) - min(w.arrival for w in workloads)
 
 
+# ---------------------------------------------------------------------------
+# Dependent job graphs (the scoreboard dispatcher's measurement domain):
+# an out-of-order host issues a DAG of jobs whose results flow
+# device-to-device, so a K-deep chain costs the critical path plus
+# per-hop forward legs — not K isolated offloads with host round trips.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphJob:
+    """One node of a dependent job graph (simulator vocabulary).
+
+    ``deps`` lists one producer node index per *dataflow edge* — repeat
+    an index when a consumer reads the same producer's result through
+    several operands (``y ← a·y + y``).  Each edge forwards the
+    producer's ``out_bytes`` result from its selection to this node's
+    (``replicate_in=True`` if this consumer reads forwarded operands
+    replicated — the fan-out-tree case — instead of sharded).
+    """
+
+    spec: JobSpec
+    clusters: tuple
+    deps: Tuple[int, ...] = ()
+    out_bytes: float = 0.0
+    replicate_in: bool = False
+
+    def __post_init__(self) -> None:
+        if not self.clusters:
+            raise ValueError("a graph node needs at least one cluster")
+
+
+@dataclasses.dataclass
+class GraphSimResult:
+    """Discrete-event outcome of one scoreboarded graph dispatch."""
+
+    makespan: float                  # first dispatch -> last resume done
+    node_finish: List[float]         # per node: its resume end
+    host_busy: float
+    issue_order: List[int]           # the scoreboard's actual issue order
+
+
+def _graph_times(nodes: Sequence[GraphJob], p: OccamyParams) -> List[tuple]:
+    return [_workload_times(
+        TenantWorkload(tenant=str(i), spec=nd.spec, clusters=nd.clusters),
+        p) for i, nd in enumerate(nodes)]
+
+
+def _edge_cost(nodes: Sequence[GraphJob], d: int, v: int,
+               p: OccamyParams, closed_form: bool) -> float:
+    fn = forward_model if closed_form else simulate_forward
+    return fn(nodes[d].out_bytes, nodes[d].clusters, nodes[v].clusters,
+              replicate=nodes[v].replicate_in, params=p)
+
+
+def simulate_graph(nodes: Sequence[GraphJob],
+                   params: OccamyParams = DEFAULT_PARAMS,
+                   window: int = 4) -> GraphSimResult:
+    """Discrete-event model of scoreboarded out-of-order graph dispatch.
+
+    The host issues nodes the way ``Session.submit_graph`` does — through
+    the Active-List/Integer-Queue scoreboard, a node becoming issuable
+    when every producer has *issued* (async dispatch chains the data
+    device-side), bounded by ``window`` in-flight completion-unit copies.
+    Dispatch and resume legs serialize on the shared host; a node's
+    device phases start when its dispatch lands, its lease is free
+    (nodes sharing a selection serialize on it), and every producer's
+    device phases plus the edge's d2d forward leg
+    (:func:`simulate_forward`) have finished.  Retirement fetches only
+    the completion cause — intermediate results never ride the host
+    link, which is exactly why the chain costs critical path + forward
+    hops instead of K round trips.
+    """
+    if not nodes:
+        raise ValueError("empty graph")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    from repro_torch.core.scoreboard import Scoreboard
+    sb = Scoreboard([nd.deps for nd in nodes])
+    p = params
+    times = _graph_times(nodes, p)
+    host_free = 0.0
+    host_busy = 0.0
+    lease_free: Dict[tuple, float] = {}
+    dev_end: Dict[int, float] = {}
+    node_finish = [0.0] * len(nodes)
+    unretired: List[int] = []         # issued, awaiting resume (age order)
+    while not sb.all_retired:
+        ready = sb.ready()
+        if ready and sb.inflight < window:
+            i = ready[0]                         # Integer Queue, age order
+            t_host, t_dev, _, _ = times[i]
+            start = host_free
+            host_free = start + t_host
+            host_busy += t_host
+            key = tuple(nodes[i].clusters)
+            dev_start = max(host_free, lease_free.get(key, 0.0))
+            for d in nodes[i].deps:
+                dev_start = max(dev_start,
+                                dev_end[d] + _edge_cost(nodes, d, i, p,
+                                                        closed_form=False))
+            dev_end[i] = dev_start + t_dev
+            lease_free[key] = dev_end[i]
+            sb.issue(i)
+            unretired.append(i)
+        else:
+            # window full or nothing ready: retire the earliest-finishing
+            # in-flight node (its resume leg occupies the host)
+            i = min(unretired, key=lambda j: dev_end[j])
+            unretired.remove(i)
+            t_resume = times[i][2]
+            start = max(host_free, dev_end[i])
+            host_free = start + t_resume
+            host_busy += t_resume
+            node_finish[i] = host_free
+            sb.retire(i)
+    return GraphSimResult(makespan=max(node_finish),
+                          node_finish=node_finish, host_busy=host_busy,
+                          issue_order=list(sb.issue_order))
+
+
+def graph_critical_path(nodes: Sequence[GraphJob],
+                        params: OccamyParams = DEFAULT_PARAMS) -> float:
+    """Closed-form graph latency — three lower bounds composed by max.
+
+    * **critical path** — the longest dataflow chain: one un-hidden
+      dispatch leg, then ``Σ (t_dev + t_fwd)`` along the path
+      (:func:`forward_model` per edge), then the final resume;
+    * **shared host** — every dispatch and resume serializes on the
+      host core, plus the shortest device time;
+    * **shared lease** — nodes on an identical selection serialize
+      their device phases.
+
+    Host FIFO interleaving and window-drain order are deliberately
+    dropped (§6 abstraction level, < 15 % error vs
+    :func:`simulate_graph`).
+    """
+    if not nodes:
+        raise ValueError("empty graph")
+    times = _graph_times(nodes, params)
+    n = len(nodes)
+    g = [0.0] * n                    # dataflow DP in (validated) topo order
+    from repro_torch.core.scoreboard import Scoreboard
+    sb = Scoreboard([nd.deps for nd in nodes])
+    order: List[int] = []
+    while not sb.all_issued:
+        i = sb.ready()[0]
+        sb.issue(i)
+        order.append(i)
+    for i in order:
+        t_dev = times[i][1]
+        base = max((g[d] + _edge_cost(nodes, d, i, params, closed_form=True)
+                    for d in nodes[i].deps), default=0.0)
+        g[i] = base + t_dev
+    sources = [i for i in range(n) if not nodes[i].deps]
+    cp = (min(times[i][0] for i in sources)
+          + max(g[i] + times[i][2] for i in range(n)))
+    host = (sum(times[i][0] + times[i][2] for i in range(n))
+            + min(times[i][1] for i in range(n)))
+    bounds = [cp, host]
+    lease_dev: Dict[tuple, float] = {}
+    lease_head: Dict[tuple, float] = {}
+    lease_tail: Dict[tuple, float] = {}
+    for i, nd in enumerate(nodes):
+        key = tuple(nd.clusters)
+        lease_dev[key] = lease_dev.get(key, 0.0) + times[i][1]
+        lease_head[key] = min(lease_head.get(key, float("inf")), times[i][0])
+        lease_tail[key] = min(lease_tail.get(key, float("inf")), times[i][2])
+    for key, dev in lease_dev.items():
+        bounds.append(lease_head[key] + dev + lease_tail[key])
+    return max(bounds)
+
+
+def isolated_graph_cycles(nodes: Sequence[GraphJob],
+                          params: OccamyParams = DEFAULT_PARAMS) -> float:
+    """The chained ``submit``+``wait`` baseline the graph path replaces.
+
+    Every node runs as an isolated synchronous offload, and every
+    dataflow edge bounces through the host: one d2h fetch per *unique*
+    producer a consumer reads (``wait()`` fetches the result once) plus
+    one h2d restage per edge (each consuming operand is staged — through
+    the staging tree when the consumer reads it replicated).  The
+    ``dag`` bench's ≤ 0.6× acceptance bar compares
+    :func:`simulate_graph` against this.
+    """
+    if not nodes:
+        raise ValueError("empty graph")
+    p = params
+    total = sum(simulate(nd.spec, len(nd.clusters), "multicast", p).total
+                for nd in nodes)
+    for i, nd in enumerate(nodes):
+        for d in sorted(set(nd.deps)):                     # d2h fetch
+            b = nodes[d].out_bytes
+            total += (p.dma_setup_one
+                      + max(1.0, b / p.wide_bw_bytes_per_cycle)
+                      + p.dma_latency)
+        for d in nd.deps:                                  # h2d restage
+            b = nodes[d].out_bytes
+            total += (simulate_staging(b, nd.clusters, "tree", p)
+                      if nd.replicate_in else
+                      (p.dma_setup_one
+                       + max(1.0, b / p.wide_bw_bytes_per_cycle)
+                       + p.dma_latency))
+    return total
+
+
 @dataclasses.dataclass(frozen=True)
 class StagingCostModel:
     """Calibrated staging-cost model for an arbitrary substrate (wallclock).
