@@ -42,6 +42,11 @@ no JAX and nothing of the reference package.
    / warm / resident per-dispatch wall times and the plan counters; one
    fused dispatch (B=8) per job and one tree staging at n=32.  The kernels'
    launch counts are zeroed just before this phase and read just after.
+   Then the session layer (``session_phase``), the perf linter
+   (``lint_phase``: ``Session(lint=True)``, one submission per OFLP1##
+   code, each fix run against its original, the model's cycles beside the
+   card's ms) and ``BackupOffload`` (``backup_phase``: primary clusters
+   0-15, backup 16-31, one forced reissue).
 4. Flash attention: the hand-written kernel against ``ref.attention`` over
    ``tests/test_kernels.py``'s flash sweep (f32 at 2e-3), GQA, Sq < Skv,
    causal Sq > Skv (whose rows with no visible column must give the mean
@@ -60,7 +65,13 @@ no JAX and nothing of the reference package.
    step.  The launch counts are zeroed just before and read just after:
    every prefill must run the flash kernel once per layer.  Then the
    prefill logits with the kernel against the plain attention, and the
-   prefill / decode / continuous times.
+   prefill / decode / continuous times.  Then the serve tenant
+   (``tenant_phase``): a ``ServeTenant`` on a ``FabricScheduler`` of 32
+   logical clusters adopts the same model (floor 1, burst 8), serves the
+   same prompts in two bursts around an offload ``Session`` on the
+   head-room and a failover of its floor window; both bursts' tokens must
+   be the ``step`` mode's, and the peak memory shows one copy of the
+   weights.
 6. SSM scan: the hand-written kernel against ``ref.ssm_scan`` over
    ``tests/test_kernels.py``'s scan sweep (f32 at 2e-4), S = 1, N = 32 and
    64, a D that leaves a channel group short, a given ``h0`` with the
@@ -182,6 +193,11 @@ SCAN_PREFILL_SHAPE = (4, 256, 8192, 16)
 #: multiply-add); in bf16 both round one f32 result to bf16 once
 SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+#: the lint phase: alternating passes of each original and fixed submission
+#: (after one warm pass each)
+LINT_PASSES = 5
+#: the serve tenant: its floor lease and burst size, in logical clusters
+TENANT = dict(floor=1, burst=8)
 
 
 class Checks:
@@ -413,7 +429,10 @@ def device_busy(fn, reps):
 
 def serving_phase(check, report):
     """Yi-9B at its published width through ``ServeEngine`` on the card.
-    Returns the launch counts of the serving run."""
+    Returns what the tenant phase reuses: the launch counts of the serving
+    run, the config, the model (still on the card), the prompts, the
+    ``step`` mode's greedy tokens, ``max_len`` and the peak device
+    memory."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticStream
@@ -613,9 +632,11 @@ def serving_phase(check, report):
         "prefill_logits": prefill_cmp, "busy": busy,
         "max_memory_allocated": peak, "launches": launches,
         "prefills": prefills}
-    del model, cache
+    del cache
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "cfg": cfg, "model": model,
+            "prompts": prompts, "tokens": outs["step"], "max_len": max_len,
+            "peak": peak}
 
 
 def scan_work(shape, itemsize, h0, state):
@@ -1291,6 +1312,413 @@ def session_phase(check, report, device=None, sizes=None,
     return launches
 
 
+def lint_phase(check, report, device=None, sizes=None):
+    """The perf linter on the card: ``Session(lint=True)`` with 32 logical
+    clusters, one submission per ``OFLP1##`` code where a fixture of
+    ``tests/test_perflint.py`` applies, at the offload phase's larger
+    sizes where the code fires there (OFLP102 and OFLP105 fire only where
+    the dispatch constant dominates: at the jobs' default sizes).
+
+    For each finding its fix is applied and the original and the fixed
+    submission run in turn: one warm pass each, then ``LINT_PASSES``
+    alternating passes; the model's cycles (current, fixed) stand beside
+    the card's median ms (current, fixed).  Checks: each expected code is
+    found, the fixed results equal the original's (jobs at
+    rtol=atol=1e-9, graphs bit-identical) and the expected values, and
+    the four job kernels launched.  Whether the card agrees with the
+    model's sign is recorded, not checked.  ``device``/``sizes`` default
+    to the card and the larger sizes (a CPU rehearsal passes smaller
+    ones).  Returns the kernels' launch counts over the phase.
+    """
+    import numpy as np
+    import torch
+    from repro_torch.analysis import perflint
+    from repro_torch.api import AUTO, GraphNode, Ref, Session, Staging
+    from repro_torch.core import jobs
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    sizes = sizes or {k: v[1] for k, v in OFFLOAD_SIZES.items()}
+    out = report.setdefault("lint", {"cases": []})
+    build.reset_counts()
+    sess = Session(device, num_clusters=32, lint=True)
+    check(sess.num_clusters == 32 and (device is not None
+                                       or sess.device.type == "cuda"),
+          "lint: the session is not 32 clusters on the card")
+    print("== lint: Session(lint=True) on the card, each OFLP1## fix run "
+          "against its original", flush=True)
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+
+    def held(tag, got, want, exact=False):
+        """Results of two submissions, or of one and its expected value:
+        dicts of graph results bit-identical, jobs at 1e-9."""
+        if isinstance(got, dict):
+            ok = sorted(got) == sorted(want) and all(
+                np.asarray(got[k]).tobytes() == np.asarray(want[k]).tobytes()
+                for k in got)
+            check(ok, f"lint {tag}: graph results not bit-identical")
+            return 0.0
+        got, want = np.asarray(got), np.asarray(want)
+        err = float(np.max(np.abs(got - want))) if got.size else 0.0
+        ok = got.shape == want.shape and (
+            np.array_equal(got, want) if exact
+            else bool(np.allclose(got, want, **JOB_TOL)))
+        check(ok, f"lint {tag}: off by {err:.3g}")
+        return err
+
+    def case(code, tag, original, fixed_from, expected):
+        """``original()`` -> (results, findings) submits and waits;
+        ``fixed_from(finding)`` -> the fixed submission, the same way."""
+        res, findings = original()
+        codes = sorted({f.code for f in findings})
+        f = next((f for f in findings if f.code == code), None)
+        check(f is not None, f"lint {tag}: {code} not among {codes}")
+        if f is None:
+            return
+        fixed = fixed_from(f, findings)
+        fres, _ = fixed()
+        err = held(f"{tag} fixed vs original", fres, res)
+        if expected is not None:
+            err = max(err, held(f"{tag} vs expected", res, expected))
+        ms = {"current": [], "fixed": []}
+        for _ in range(LINT_PASSES):
+            for label, fn in (("current", original), ("fixed", fixed)):
+                sync()
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        row = {"code": code, "case": tag, "codes": codes,
+               "fix": dataclasses.asdict(f.fix),
+               "current_cycles": f.predicted_cycles,
+               "fixed_cycles": f.optimal_cycles,
+               "model_ratio": f.optimal_cycles / f.predicted_cycles,
+               "current_ms": med["current"], "fixed_ms": med["fixed"],
+               "card_ratio": med["fixed"] / med["current"],
+               "passes_ms": ms, "max_abs_err": err,
+               "card_agrees": med["fixed"] < med["current"]}
+        out["cases"].append(row)
+        print(f"  {code} {tag:34s} fix {f.fix.field}={f.fix.value!r}: model "
+              f"{f.predicted_cycles:.0f} -> {f.optimal_cycles:.0f} cycles "
+              f"(x{row['model_ratio']:.3f}); card {med['current']:.3f} -> "
+              f"{med['fixed']:.3f} ms (x{row['card_ratio']:.3f}, median of "
+              f"{LINT_PASSES}); agrees {row['card_agrees']}; codes {codes}",
+              flush=True)
+
+    def submit(job, ops, pol, **sel):
+        def run():
+            h = sess.submit(job, ops, policy=pol, **sel)
+            return h.wait(), h.findings
+        return run
+
+    # OFLP101: staging=direct pinned for a replicated 16 MiB operand
+    cov = jobs.make_covariance(*sizes["covariance"])
+    cops, cexp = cov.make_instance(0)
+    pol = AUTO.pinned(staging=Staging.DIRECT)
+    case("OFLP101", f"{cov.spec.name} n=32 staging=direct",
+         submit(cov, cops, pol, n=32),
+         lambda f, fs: submit(cov, cops,
+                              perflint.suggested_policy([f], pol), n=32),
+         cexp)
+
+    # OFLP102: an under-fused list (fuse=1 pinned) of 16 small axpys
+    small = jobs.make_axpy()
+    insts, exps = jobs.make_instances(small, 16, seed0=50)
+    pol = AUTO.pinned(fuse=1)
+    case("OFLP102", f"{small.spec.name} list of 16 fuse=1",
+         submit(small, insts, pol, n=32),
+         lambda f, fs: submit(small, insts,
+                              perflint.suggested_policy([f], pol), n=32),
+         np.stack(exps))
+
+    # OFLP103: window=1 pinned on a list of 8 covariance jobs
+    insts, exps = jobs.make_instances(cov, 8, seed0=60)
+    pol = AUTO.pinned(window=1)
+    case("OFLP103", f"{cov.spec.name} list of 8 window=1",
+         submit(cov, insts, pol, n=32),
+         lambda f, fs: submit(cov, insts,
+                              perflint.suggested_policy([f], pol), n=32),
+         np.stack(exps))
+
+    # OFLP104: the serial reshard graph, wide -> narrow -> wide
+    axpy = jobs.make_axpy(*sizes["axpy"])
+    aops, _ = axpy.make_instance(0)
+    nodes = [GraphNode(axpy, aops, name="wide"),
+             GraphNode(axpy, {"x": aops["x"], "y": Ref("wide")},
+                       name="narrow", clusters=list(range(16))),
+             GraphNode(axpy, {"x": aops["x"], "y": Ref("narrow")},
+                       name="tail")]
+
+    def graph(ns):
+        def run():
+            gh = sess.submit_graph(ns)
+            return gh.wait(), gh.findings
+        return run
+
+    case("OFLP104", f"{axpy.spec.name} serial reshard graph", graph(nodes),
+         lambda f, fs: graph(perflint.apply(
+             [g for g in fs if g.code == "OFLP104"], nodes=nodes).nodes),
+         None)
+
+    # OFLP105: a misaligned selection of 16 clusters
+    mm = jobs.make_matmul()
+    mops, mexp = mm.make_instance(0)
+    mis = list(range(1, 17))
+    case("OFLP105", f"{mm.spec.name} clusters 1..16",
+         submit(mm, mops, AUTO, clusters=mis),
+         lambda f, fs: submit(mm, mops, AUTO, clusters=list(
+             perflint.apply([f], clusters=mis).clusters)),
+         mexp)
+
+    # OFLP106: a stage() whose residency no submit redispatches
+    atax = jobs.make_atax(*sizes["atax"])
+    xops, xexp = atax.make_instance(0)
+
+    def staged_then_fresh():
+        sess.stage(atax, xops, n=32)
+        res = sess.submit(atax, xops, n=32).wait()
+        return res, perflint.lint_session(sess)
+
+    case("OFLP106", f"{atax.spec.name} stage() never reused",
+         staged_then_fresh,
+         lambda f, fs: submit(atax, xops, AUTO, n=32), xexp)
+
+    # OFLP107: a fused list with donation off
+    insts, exps = jobs.make_instances(axpy, 8, seed0=70)
+    case("OFLP107", f"{axpy.spec.name} list of 8, donation off",
+         submit(axpy, insts, AUTO, n=32),
+         lambda f, fs: submit(axpy, insts,
+                              perflint.suggested_policy([f], AUTO), n=32),
+         np.stack(exps))
+
+    sess.close()
+    sync()
+    launches = build.launch_counts()
+    found = sorted({r["code"] for r in out["cases"]})
+    check(found == [f"OFLP10{i}" for i in range(1, 8)],
+          f"lint: codes run {found}")
+    for name in KERNEL_JOBS:
+        check(launches[name] > 0,
+              f"the lint phase never launched the {name} kernel")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    agree = [r["code"] for r in out["cases"] if r["card_agrees"]]
+    print(f"lint: the card agrees with the model's sign on {len(agree)} of "
+          f"{len(out['cases'])} fixes ({', '.join(agree)})", flush=True)
+    print("lint kernels: " + " ".join(f"{k}={v}"
+                                      for k, v in launches.items()))
+    print(f"lint phase: {out['seconds']:.1f} s", flush=True)
+    return launches
+
+
+def backup_phase(check, report, device=None, size=None):
+    """``BackupOffload`` on the card: 32 logical clusters, primary 0-15,
+    backup 16-31, the covariance job at the offload phase's larger size.
+    Healthy runs, then a ``delay_hook`` that forces one reissue: every
+    result within 1e-9 of ``expected``, the covariance kernel launched
+    once a healthy run and twice (primary and backup) a reissued one, and
+    overlapping sets refused.  The two windows are logical clusters of
+    one card: the backup queues behind the primary, it does not race it
+    on other hardware."""
+    import numpy as np
+    import torch
+    from repro_torch.core import jobs
+    from repro_torch.core.offload import OffloadRuntime
+    from repro_torch.ft import BackupOffload, StepWatchdog, WatchdogConfig
+    from repro_torch.kernels import build
+
+    size = size or OFFLOAD_SIZES["covariance"][1]
+    out = report.setdefault("backup", {})
+    job = jobs.make_covariance(*size)
+    rt = OffloadRuntime(device)
+    primary, backup = list(range(16)), list(range(16, 32))
+    print(f"== backup: BackupOffload, {job.spec.name}, primary clusters "
+          f"0-15, backup 16-31", flush=True)
+    ops, _ = job.make_instance(0)
+    for sel in (primary, backup):           # each window's plan, warm
+        rt.offload(job, ops, clusters=sel).wait()
+    delays = []
+    # the deadline's floor keeps a healthy dispatch far inside it
+    bo = BackupOffload(rt, StepWatchdog(WatchdogConfig(min_deadline_s=5.0),
+                                        estimate=0.02),
+                       delay_hook=lambda h: delays.pop() if delays else 0.0)
+
+    def run(seed, tag):
+        before = build.launch_counts()["covariance"]
+        if device is None:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, exp = bo.run(job, seed, primary=primary, backup=backup)
+        ms = (time.perf_counter() - t0) * 1e3
+        if device is None:
+            torch.cuda.synchronize()
+        err = float(np.max(np.abs(np.asarray(res) - exp)))
+        check(bool(np.allclose(res, exp, **JOB_TOL)),
+              f"backup {tag} run: off by {err:.3g}")
+        return ms, err, build.launch_counts()["covariance"] - before
+
+    healthy = [run(seed, "healthy") for seed in (1, 2, 3)]
+    check(bo.reissues == 0 and all(n == 1 for _, _, n in healthy),
+          f"backup healthy runs: {bo.reissues} reissues, launches "
+          f"{[n for _, _, n in healthy]}")
+    delays.append(10.0)
+    re_ms, re_err, re_n = run(4, "reissued")
+    check(bo.reissues == 1 and re_n == 2,
+          f"backup: {bo.reissues} reissues, {re_n} covariance launches in "
+          f"the reissued run")
+    try:
+        bo.run(job, 5, primary=primary, backup=[15, 16])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "backup: overlapping primary and backup sets accepted")
+    out.update({"job": job.spec.name, "healthy_ms": [h[0] for h in healthy],
+                "reissued_ms": re_ms, "reissues": bo.reissues,
+                "max_abs_err": max([re_err] + [h[1] for h in healthy]),
+                "overlap_refused": refused,
+                "outstanding": sorted(rt.unit.outstanding().items())})
+    check(out["outstanding"] == [],
+          f"backup: completion unit left {out['outstanding']}")
+    print(f"  healthy {', '.join(f'{h[0]:.2f}' for h in healthy)} ms "
+          f"(1 covariance launch each); reissued {re_ms:.2f} ms ({re_n} "
+          f"launches); reissues {bo.reissues}; err {out['max_abs_err']:.2g}; "
+          f"overlap refused {refused}", flush=True)
+    del rt, bo
+
+
+def tenant_phase(check, report, served, device=None):
+    """The lease-holding serve tenant at full width: a
+    ``FabricScheduler`` of 32 logical clusters on the card and a
+    ``ServeTenant`` that adopts the serving phase's Yi-9B model (floor
+    ``TENANT["floor"]``, burst ``TENANT["burst"]``).  A ``generate``
+    burst of the serving phase's prompts, an offload ``Session`` on a
+    lease of the head-room running one covariance submit, the floor
+    window failed, a second burst.  Checks: both bursts' greedy tokens
+    are the serving phase's ``ServeEngine`` tokens, the flash kernel ran
+    once per layer of each burst's prefill, one failover, no lease left
+    after ``close()``, and the peak device memory under the serving
+    phase's peak plus the window engines' caches (no second copy of the
+    weights)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import jobs
+    from repro_torch.core.fabric import FabricScheduler
+    from repro_torch.kernels import build
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeConfig, ServeTenant
+
+    cfg, model = served["cfg"], served["model"]
+    st = SERVE_STATIC
+    out = report.setdefault("tenant", {})
+    print(f"== tenant: ServeTenant over the serving phase's {cfg.name} "
+          f"(floor {TENANT['floor']}, burst {TENANT['burst']} of 32 "
+          f"clusters)", flush=True)
+
+    def sync():
+        if device is None:
+            torch.cuda.synchronize()
+
+    sync()
+    if device is None:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sched = FabricScheduler(device)
+    check(sched.num_clusters == 32, "tenant: the fabric is not 32 clusters")
+    scfg = ServeConfig(batch=st["batch"], max_len=served["max_len"])
+    tenant = ServeTenant(sched, cfg, model, scfg, floor=TENANT["floor"],
+                         burst=TENANT["burst"])
+    host_us = {"grow": [], "shrink": []}
+    for name in ("_grow", "_shrink"):
+        def timed(fn=getattr(tenant, name), key=name[1:]):
+            t0 = time.perf_counter()
+            fn()
+            host_us[key].append((time.perf_counter() - t0) * 1e6)
+        setattr(tenant, name, timed)
+
+    def burst():
+        sync()
+        t0 = time.perf_counter()
+        toks = tenant.generate(served["prompts"], st["new_tokens"])
+        sync()
+        return toks, time.perf_counter() - t0
+
+    build.reset_counts()
+    toks1, s1 = burst()
+    free_between = len(sched.free_clusters())
+    check(tenant.lease.n == TENANT["floor"] and tenant.peak_burst
+          == TENANT["burst"], f"tenant: lease {tenant.lease.clusters}, "
+                              f"peak burst {tenant.peak_burst}")
+
+    # an offload tenant takes the head-room between bursts
+    cov = jobs.make_covariance(*OFFLOAD_SIZES["covariance"][1])
+    cops, cexp = cov.make_instance(0)
+    sess = sched.session("offload", n=16)
+    off_window = sess.lease.clusters
+    t0 = time.perf_counter()
+    got = sess.submit(cov, cops).wait()
+    off_ms = (time.perf_counter() - t0) * 1e3
+    off_err = float(np.max(np.abs(got - cexp)))
+    check(bool(np.allclose(got, cexp, **JOB_TOL))
+          and not set(off_window) & set(tenant.lease.clusters),
+          f"tenant: offload on {off_window} off by {off_err:.3g}")
+    sess.close()
+
+    floor_window = tenant.lease.clusters
+    sched.fail_clusters(list(floor_window))
+    toks2, s2 = burst()
+    launches = build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if device is None else 0
+    failovers = sched.health().failovers
+    windows = tenant.windows
+    stats = tenant.stats
+    tenant.close()
+    leases = sched.leases
+
+    want = served["tokens"]
+    for i, toks in enumerate((toks1, toks2)):
+        check(np.array_equal(toks, want),
+              f"tenant burst {i + 1}: greedy tokens differ from the "
+              f"serving phase's ServeEngine")
+    check(launches["flash_attention"] == 2 * cfg.n_layers,
+          f"tenant: flash_attention launched {launches['flash_attention']} "
+          f"times over two bursts of {cfg.n_layers} layers")
+    check(failovers == 1 and leases == (),
+          f"tenant: failovers {failovers}, leases left {leases}")
+    cache = init_cache(cfg, st["batch"], served["max_len"], device="meta")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values()
+                      if isinstance(t, torch.Tensor))
+    bound = served["peak"] + len(windows) * cache_bytes
+    if device is None:
+        check(peak <= bound, f"tenant: peak {peak} B over {bound} B (the "
+                             f"serving peak and {len(windows)} caches)")
+    out.update({"windows": [list(w) for w in windows],
+                "peak_burst": tenant.peak_burst, "stats": stats,
+                "burst_s": [s1, s2], "free_between_bursts": free_between,
+                "offload_window": list(off_window), "offload_ms": off_ms,
+                "offload_err": off_err, "failed_window": list(floor_window),
+                "failovers": failovers, "launches": launches,
+                "grow_us": host_us["grow"], "shrink_us": host_us["shrink"],
+                "peak_bytes": peak, "peak_bound_bytes": bound,
+                "serving_peak_bytes": served["peak"],
+                "cache_bytes": cache_bytes})
+    grow_shrink = [g + s for g, s in zip(host_us["grow"], host_us["shrink"])]
+    print(f"  bursts {s1:.3f} s, {s2:.3f} s wall; windows "
+          f"{out['windows']}, peak burst {tenant.peak_burst}, free between "
+          f"bursts {free_between}; offload covariance on {list(off_window)}"
+          f" {off_ms:.2f} ms (err {off_err:.2g}); failed {list(floor_window)}"
+          f", failovers {failovers}", flush=True)
+    print(f"  host us of _grow + _shrink a burst: "
+          f"{', '.join(f'{u:.1f}' for u in grow_shrink)}; flash launches "
+          f"{launches['flash_attention']}; peak device memory {peak} B "
+          f"(serving phase {served['peak']} B, bound {bound} B)", flush=True)
+    print(f"  stats {stats}", flush=True)
+    return launches
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"),
@@ -1842,10 +2270,19 @@ def main() -> int:
               f"the session path never launched the {name} kernel")
     torch.cuda.empty_cache()
 
-    # -- 4-5. flash attention, then the serving path ----------------------
+    # -- 3d-3e. the perf linter's fixes, then BackupOffload ---------------
+    lint_phase(check, report)
+    torch.cuda.empty_cache()
+    backup_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 4-5. flash attention, the serving path, the serve tenant ---------
     flash_row = flash_phase(check, report, time_ms)
     torch.cuda.empty_cache()
-    serve_launches = serving_phase(check, report)
+    served = serving_phase(check, report)
+    serve_launches = served["launches"]
+    tenant_phase(check, report, served)
+    del served
 
     # -- 6-7. the SSM scan, then serving falcon-mamba ----------------------
     torch.cuda.empty_cache()

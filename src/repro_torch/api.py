@@ -9,7 +9,13 @@ the multi-tenant fabric scheduler (:class:`FabricScheduler` /
 :class:`ClusterLease`), the fault-tolerance substrate
 (:class:`FaultPlan` / :class:`FaultInjector` / :class:`RetryPolicy`),
 the static verifier (:func:`verify` / :func:`verify_graph` /
-:func:`verify_policy`) and the serving engine.
+:func:`verify_policy`), the model-driven perf linter
+(``Session(lint=True)`` / :func:`lint` / :func:`lint_graph` emitting
+``OFLP1##`` :class:`PerfFinding` records with machine-applicable
+:class:`Fix` rewrites, and the ``python -m repro_torch.lint`` CLI), the
+wall-clock fault tolerance
+(:class:`StepWatchdog` / :class:`BackupOffload`), the serving engine and
+its lease-holding fabric tenant (:class:`ServeTenant`).
 
 Quickstart::
 
@@ -26,18 +32,22 @@ Quickstart::
     print(handle.explain())               # predicted vs measured
 
 ``Session(device="cpu", num_clusters=8)`` runs the same path on the
-kernels' plain versions.  The names of the reference's surface whose
-modules are not ported yet are listed in :data:`NOT_YET_PORTED`.
+kernels' plain versions.  The one name of the reference's surface whose
+module is not ported yet is listed in :data:`NOT_YET_PORTED`.
 """
 
 from repro_torch.analysis import (
     Diagnostic,
     DiagnosticsLog,
+    Fix,
+    PerfFinding,
     SanitizerError,
     Severity,
     UnknownDiagnosticCode,
     VerificationError,
     explain,
+    lint,
+    lint_graph,
     verify,
     verify_graph,
     verify_policy,
@@ -101,25 +111,17 @@ from repro_torch.core.session import (
     estimate,
     predict_staging,
 )
-from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.ft import BackupOffload, StepWatchdog, WatchdogConfig
+from repro_torch.serve import ServeConfig, ServeEngine, ServeTenant
 
 #: names of ``repro.api.__all__`` whose modules the port does not have yet:
-#: the performance linter (``analysis/perflint.py``), the fault-tolerance
-#: package (``ft/``) and the fabric's serve tenant.  Shrinks as they land.
-NOT_YET_PORTED = (
-    "BackupOffload",
-    "Fix",
-    "PerfFinding",
-    "ServeTenant",
-    "StepWatchdog",
-    "WatchdogConfig",
-    "elastic_restore",
-    "lint",
-    "lint_graph",
-)
+#: ``elastic_restore`` (``ft/elastic.py``) restores a checkpoint onto a new
+#: mesh and comes with the training substrate.
+NOT_YET_PORTED = ("elastic_restore",)
 
 __all__ = [
     "AUTO",
+    "BackupOffload",
     "ClusterLease",
     "Completion",
     "CompletionTimeout",
@@ -135,6 +137,7 @@ __all__ = [
     "FaultKind",
     "FaultPlan",
     "FaultSpec",
+    "Fix",
     "GraphError",
     "GraphHandle",
     "GraphNode",
@@ -150,6 +153,7 @@ __all__ = [
     "PAPER_JOBS",
     "PaperJob",
     "PendingLease",
+    "PerfFinding",
     "PlanDecision",
     "PlanStats",
     "Planner",
@@ -162,18 +166,23 @@ __all__ = [
     "Scoreboard",
     "ServeConfig",
     "ServeEngine",
+    "ServeTenant",
     "Session",
     "SessionHandle",
     "SessionHealth",
     "Severity",
     "Staging",
+    "StepWatchdog",
     "Tenant",
     "TenantKind",
     "UnknownDiagnosticCode",
     "VerificationError",
+    "WatchdogConfig",
     "deadline_cycles",
     "estimate",
     "explain",
+    "lint",
+    "lint_graph",
     "make_instances",
     "predict_recovery",
     "predict_staging",

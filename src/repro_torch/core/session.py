@@ -83,11 +83,13 @@ from repro_torch.core.stream import OffloadStream
 #: dispatch-constant phases — paid once per launch, amortized by fusion
 CONST_PHASES = (Phase.A, Phase.B, Phase.C, Phase.D, Phase.H, Phase.I)
 
-#: what ``lint=True`` raises until the perf linter is ported
-_LINT_MISSING = (
-    "lint=True needs the performance linter (analysis/perflint.py), which "
-    "repro_torch does not have yet; the reference's repro.analysis.perflint "
-    "is the one to port")
+
+def nbytes_of(value: Any) -> int:
+    """Bytes of a numpy array, a tensor on any device, or an array-like
+    (read from its shape and dtype, never from its data)."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    return int(np.asarray(value).nbytes)
 
 
 def amortized_per_job(phases: Mapping[Phase, float], fuse: int,
@@ -253,7 +255,7 @@ class Planner:
         """Host-link-replicated operand footprint (shard_axes None)."""
         if operands is None:
             operands, _ = job.make_instance(0)
-        return sum(int(np.asarray(v).nbytes)
+        return sum(nbytes_of(v)
                    for k, v in operands.items()
                    if job.shard_axes.get(k) is None)
 
@@ -698,8 +700,6 @@ class Session:
             raise ValueError("give a device or a runtime, not both")
         if lease is not None and (own or runtime is not None):
             raise ValueError("give a lease or a device/runtime, not both")
-        if lint:
-            raise NotImplementedError(_LINT_MISSING)
         if not isinstance(policy, OffloadPolicy):
             raise TypeError(f"policy must be an OffloadPolicy, got "
                             f"{type(policy).__name__}")
@@ -748,6 +748,8 @@ class Session:
         # estimates are deterministic per (job, selection, batch, policy):
         # cache them so warm submits pay no model arithmetic
         self._est_cache: Dict[Tuple, Estimate] = {}
+        # perf-lint findings are deterministic over the same key
+        self._lint_cache: Dict[Tuple, List[Any]] = {}
         # verify warnings + lint findings land here, ring-buffered so a
         # long-lived serve loop holds memory flat (diag_limit caps it)
         self._diags = DiagnosticsLog(diag_limit)
@@ -920,10 +922,11 @@ class Session:
         (dict submit) or per-job results in submit order (list submit),
         ``explain()`` the predicted-vs-measured breakdown.
 
-        ``lint=True`` (or ``Session(lint=True)``) would run the
-        performance linter over the submit, as in the reference; the
-        port has no ``analysis/perflint.py`` yet, so it raises
-        :class:`NotImplementedError`.
+        ``lint=True`` (or ``Session(lint=True)``) additionally runs the
+        performance linter (:mod:`repro_torch.analysis.perflint`) over the
+        submit: advisory ``OFLP1##`` findings — never a gate — land in
+        :attr:`Session.diagnostics`, on ``handle.findings``, and in
+        ``handle.explain()``.
         """
         self._check_open("submit")
         pol = self.policy if policy is None else policy
@@ -981,9 +984,9 @@ class Session:
                            n_units=self.n_units, params=self.params,
                            operands=first_ops, planner=self.planner)
             self._est_cache[cache_key] = est
-        if lint:
-            raise NotImplementedError(_LINT_MISSING)
-        findings: List[Any] = []
+        findings = self._lint_submit(
+            job, first_ops, pol, batch, ids,
+            self.lint if lint is None else lint, cache_key)
         self._slo_gate(est, batch)
         decision = est.decision
         rt = self._runtime_for(pol)
@@ -1047,6 +1050,25 @@ class Session:
         return SessionHandle(self, job, est, parts, multi or
                              (resident and decision.fuse > 1), plans, t0,
                              findings=findings)
+
+    def _lint_submit(self, job: PaperJob, first_ops: Any,
+                     pol: OffloadPolicy, batch: int, ids: Sequence[int],
+                     lint: bool, cache_key: Tuple) -> List[Any]:
+        """Run (and cache) the perf linter for one submit; findings are
+        recorded in the session diagnostics log the first time only."""
+        if not lint:
+            return []
+        findings = self._lint_cache.get(cache_key)
+        if findings is None:
+            from repro_torch.analysis import perflint
+            findings = perflint.lint(
+                job, first_ops, policy=pol, batch=batch,
+                clusters=list(ids), allowed=self._cluster_ids,
+                n_units=self.n_units, params=self.params,
+                planner=self.planner)
+            self._lint_cache[cache_key] = findings
+            self._diags.record(f.diagnostic for f in findings)
+        return findings
 
     def _verify_submit(self, job: PaperJob, operands: Any, n, request,
                        clusters) -> None:
@@ -1140,9 +1162,15 @@ class Session:
                 default_width=len(self._cluster_ids), session=self)
             self._diags.record(diags)
             _verifier.raise_errors(diags)
-        if lint:
-            raise NotImplementedError(_LINT_MISSING)
         findings: List[Any] = []
+        if self.lint if lint is None else lint:
+            from repro_torch.analysis import perflint
+            findings = perflint.lint_graph(
+                nodes, policy=pol, n_units=self.n_units,
+                default_width=len(self._cluster_ids),
+                allowed=self._cluster_ids, params=self.params,
+                planner=self.planner)
+            self._diags.record(f.diagnostic for f in findings)
         deps, data_edges = resolve_graph(nodes)
         sb = Scoreboard(deps)
         targets: List["Session"] = []
@@ -1471,6 +1499,7 @@ class Session:
         self._streams = {}
         self._fused_inflight = collections.deque()
         self._est_cache = {}
+        self._lint_cache = {}
         # the failover window invalidates the ledger's selections
         self._staged_residency = {}
 
@@ -1639,8 +1668,8 @@ class Session:
         plan.stage(stacked, _caller_owned=not multi,
                    via=decision.staging)
         # OFLP106 ledger: remember what this stage cost; resident submits
-        # of the same (job, selection) bump the use counter (the
-        # reference's perflint.lint_session reads it)
+        # of the same (job, selection) bump the use counter, and
+        # perflint.lint_session flags entries nothing ever redispatched
         rep = self.planner.replicated_bytes(job, first_ops) * batch
         total = sum(int(np.asarray(v).nbytes)
                     for v in first_ops.values()) * batch

@@ -11,9 +11,15 @@ decode batch under a Poisson-ish arrival trace):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \\
         --reduced --batch 4 --continuous --requests 8 --arrival-rate 0.5
 
+Serving as a lease-holding fabric tenant (a ``--serve-floor`` cluster
+floor of the device's 32 logical clusters, grown into the free clusters
+for each decode burst):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --reduced --batch 4 --fabric --serve-floor 1
+
 The weights are random, drawn from ``--seed`` on the host, and placed on
-the device under ``--staging``.  ``--fabric`` (serving as a lease-holding
-tenant) comes with the fabric scheduler.
+the device under ``--staging``.
 """
 
 from __future__ import annotations
@@ -24,10 +30,11 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.fabric import FabricScheduler
 from repro_torch.core.policy import Staging
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.models import get, init_params, reduced
-from repro_torch.serve import ServeConfig, ServeEngine
+from repro_torch.serve import ServeConfig, ServeEngine, ServeTenant
 from repro_torch.serve.engine import resolve_device
 
 
@@ -74,6 +81,13 @@ def main(argv=None) -> None:
                     choices=["direct", "tree", "tree_reshard"],
                     help="placement strategy for weights and prefill "
                          "inserts (repro_torch.core.policy.Staging)")
+    ap.add_argument("--fabric", action="store_true",
+                    help="serve as a lease-holding fabric tenant: hold a "
+                         "--serve-floor cluster floor, grow to the free "
+                         "fabric per decode burst, shrink back between "
+                         "bursts (repro_torch.api.FabricScheduler)")
+    ap.add_argument("--serve-floor", "--floor", type=int, default=1,
+                    help="resident lease size between bursts (fabric mode)")
     ap.add_argument("--continuous", action="store_true",
                     help="continuous batching: stream --requests variable-"
                          "length prompts through the slot scheduler")
@@ -96,14 +110,18 @@ def main(argv=None) -> None:
                        decode_mode=args.decode_mode,
                        decode_chunk=args.decode_chunk,
                        staging=Staging(args.staging))
-    engine = ServeEngine(cfg, host, scfg, device=device)
-    # weight placement honours --staging
-    engine.place_params(host)
-    del host
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
+
+    if args.fabric:
+        _serve_fabric(args, cfg, host, scfg, device, sync)
+        return
+    engine = ServeEngine(cfg, host, scfg, device=device)
+    # weight placement honours --staging
+    engine.place_params(host)
+    del host
 
     if args.continuous:
         reqs, arrivals, lens = _continuous_trace(args, cfg)
@@ -134,6 +152,41 @@ def main(argv=None) -> None:
     for b in range(min(2, args.batch)):
         print(f"  slot {b}: prompt={prompts[b][:8].tolist()}... "
               f"-> {out[b][:16].tolist()}")
+
+
+def _serve_fabric(args, cfg, host, scfg, device, sync) -> None:
+    """Serve as a fabric tenant: a resident floor lease, elastically grown
+    to the free fabric for each decode burst; the clusters released
+    between bursts are leasable by offload tenants."""
+    sched = FabricScheduler(device)
+    tenant = ServeTenant(sched, cfg, host, scfg,
+                         floor=min(args.serve_floor, sched.num_clusters))
+    sync()
+    t0 = time.time()
+    if args.continuous:
+        reqs, arrivals, _ = _continuous_trace(args, cfg)
+        outs = tenant.generate_many(reqs, arrival_steps=arrivals.tolist())
+        dt = time.time() - t0
+        total = sum(len(o) for o in outs)
+        head = f"continuous, {args.requests} requests"
+        samples = [o[:12].tolist() for o in outs[:2]]
+    else:
+        stream = SyntheticStream(
+            DataConfig(vocab_size=cfg.vocab_size, batch_size=args.batch,
+                       seq_len=args.prompt_len, seed=args.seed), cfg)
+        out = tenant.generate(stream.batch(0)["tokens"], args.new_tokens)
+        dt = time.time() - t0
+        total = args.batch * args.new_tokens
+        head = f"batch {args.batch}"
+        samples = [out[b][:12].tolist() for b in range(min(2, args.batch))]
+    print(f"[serve] fabric tenant ({head}): {total} tokens in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s); lease floor "
+          f"{tenant.lease.n}/{sched.num_clusters} clusters, burst "
+          f"window {tenant.peak_burst}, free between bursts: "
+          f"{len(sched.free_clusters())}")
+    for i, s in enumerate(samples):
+        print(f"  slot {i}: -> {s}")
+    tenant.close()
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
-"""Serving substrate: batched prefill/decode engine + continuous batching
-(twin of ``repro.serve``; ``ServeTenant`` comes with the fabric)."""
+"""Serving substrate: batched prefill/decode engine, continuous batching
+and the lease-holding fabric tenant (twin of ``repro.serve``)."""
 from repro_torch.serve.engine import (
-    ServeConfig, ServeEngine, build_ragged_step, build_serve_step,
+    ServeConfig, ServeEngine, ServeTenant, build_ragged_step,
+    build_serve_step,
 )
-__all__ = ["ServeConfig", "ServeEngine", "build_ragged_step",
+__all__ = ["ServeConfig", "ServeEngine", "ServeTenant", "build_ragged_step",
            "build_serve_step"]

@@ -1,12 +1,19 @@
 """Batched serving engine: prefill + greedy/temperature decode loop — twin
 of ``repro.serve.engine`` on one device.
 
-The engine owns one device and the model's weights on it: one cluster in
-the offload runtime's terms.  Its counters (``stats``) mean what the
-reference engine's mean on a 1×1 mesh, under the same key names
-(``xla_dispatches`` counts the port's dispatches: one decode step, or one
-chunk of steps).  The reference's jitted program builders become plain
-closures over the model (``build_serve_step``, ``build_sampling_step``,
+The engine runs on one device and the model's weights on it.  It serves a
+window of the device's logical clusters (``cluster_ids``; one cluster by
+default), where the reference serves a (k, 1) mesh of k devices, each with
+its own replica of the weights.  Here the window's clusters share one copy
+of the weights on the device, and ``stats`` counts the link bytes the
+reference's placement moves for the same window (k replicas under
+``direct``; one upload and k - 1 fan-out copies under the tree modes), so
+its counters mean what the reference engine's mean, under the same key
+names (``xla_dispatches`` counts the port's dispatches: one decode step,
+or one chunk of steps).  The batch is not split over the window: batch
+rows are computed independently, so greedy tokens do not depend on it.
+The reference's jitted program builders become plain closures over the
+model (``build_serve_step``, ``build_sampling_step``,
 ``build_decode_chunk``, ``build_ragged_step``); PyTorch runs them eagerly
 and the card queues their work asynchronously.
 
@@ -38,8 +45,13 @@ the same tokens.  ``jax.random`` cannot be reproduced, so only greedy
 decoding equals the reference token for token.
 
 The caches are updated in place (the reference donates them to each
-program).  ``ServeTenant`` waits for ``core/fabric.py`` (ROADMAP.md Queue 1
-item 10).
+program).
+
+``ServeTenant`` serves as a lease-holding tenant of a
+:class:`~repro_torch.core.fabric.FabricScheduler`: a floor lease between
+decode bursts, grown into the free clusters for each burst, with one engine
+per distinct window (its own caches and counters) and one copy of the
+weights shared by all of them.
 """
 
 from __future__ import annotations
@@ -53,20 +65,15 @@ import torch
 
 from repro_torch.core import broadcast as bc
 from repro_torch.core.completion import CompletionUnit
-from repro_torch.core.policy import Staging, coerce_enum
+from repro_torch.core.fabric import (
+    ClusterLease, FabricScheduler, LeaseUnavailable, Tenant,
+)
+from repro_torch.core.policy import Staging, TenantKind, coerce_enum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     CallConfig, Transformer, decode_step, decode_step_ragged, init_cache,
     prefill,
 )
-
-
-class _ByteCounter:
-    """Duck-typed stats sink for :mod:`repro_torch.core.broadcast`."""
-
-    def __init__(self):
-        self.h2d_bytes = 0
-        self.d2d_bytes = 0
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -185,20 +192,24 @@ class ServeEngine:
     used as it is; elsewhere (host weights) call :meth:`place_params`
     first — it places the weights under ``scfg.staging`` and records the
     link bytes in ``stats``.  ``device=None`` means the card, and raises
-    without one.
+    without one.  ``cluster_ids`` is the engine's window of logical
+    clusters (global ids; one cluster when omitted).
     """
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  scfg: ServeConfig,
                  call: CallConfig = CallConfig(), *,
-                 device: Union[None, str, torch.device] = None):
+                 device: Union[None, str, torch.device] = None,
+                 cluster_ids: Optional[Sequence[int]] = None):
         self.cfg, self.scfg, self.call = cfg, scfg, call
         self.device = resolve_device(device)
         self.params = params
+        # the engine's fabric window (global cluster ids): what its
+        # placements count as replicated onto
+        self.cluster_ids = (None if cluster_ids is None
+                            else tuple(int(c) for c in cluster_ids))
         self.unit = CompletionUnit(n_units=8)
         self._jobid = 0
-        # the engine's one cluster, for tree staging
-        self._stager: Optional[bc.TreeStager] = None
         self.stats = {"h2d_token_puts": 0, "xla_dispatches": 0,
                       "tokens_emitted": 0, "prefill_inserts": 0,
                       "requests_retired": 0, "batch_padded_rows": 0,
@@ -206,54 +217,45 @@ class ServeEngine:
 
     # -- placement (weights + prefill inserts) -------------------------------------
 
-    def _get_stager(self) -> bc.TreeStager:
-        if self._stager is None:
-            self._stager = bc.TreeStager(self.device, [0])
-        return self._stager
+    def _count_replicated(self, nbytes: int) -> None:
+        """Count the link bytes of replicating ``nbytes`` onto the window
+        under ``scfg.staging``, as the reference's placement moves them:
+        one copy per cluster over the host link (``direct``), or one
+        upload to the tree's root and a device copy to each other cluster
+        (``tree``, ``tree_reshard``).  The data itself lands once."""
+        k = 1 if self.cluster_ids is None else len(self.cluster_ids)
+        if self.scfg.staging in bc.TREE_MODES:
+            self.stats["h2d_bytes"] += nbytes
+            self.stats["d2d_bytes"] += nbytes * (k - 1)
+        else:
+            self.stats["h2d_bytes"] += nbytes * k
 
     def _put_replicated(self, arr: np.ndarray) -> torch.Tensor:
-        """``arr`` onto the engine's device under ``scfg.staging``, link
-        bytes counted."""
-        place = bc.Placement(1)
-        counted = _ByteCounter()
-        if self.scfg.staging in bc.TREE_MODES:
-            out = self._get_stager().put_replicated(
-                arr, reshard=self.scfg.staging == "tree_reshard",
-                stats=counted)
-        else:
-            counted.h2d_bytes += bc.placement_bytes(arr, place)
-            out = bc.upload(place.to_clusters(arr), self.device)
-        self.stats["h2d_bytes"] += counted.h2d_bytes
-        self.stats["d2d_bytes"] += counted.d2d_bytes
-        return out[0]
+        """``arr`` onto the engine's device, link bytes counted."""
+        self._count_replicated(np.asarray(arr).nbytes)
+        return bc.upload(arr, self.device)
 
-    def place_params(self, host_params: Transformer) -> Transformer:
-        """Place host-side weights onto the device and adopt them.
+    def place_params(self, params: Transformer) -> Transformer:
+        """Place the weights on the device and adopt them.
 
-        Every leaf is replicated onto the engine's one cluster; under
-        ``staging="tree"`` it goes through the broadcast tree's stager,
-        else directly.  ``stats["h2d_bytes"]`` / ``["d2d_bytes"]`` record
-        the link traffic as the reference's ``place_params`` does.
+        Every leaf is replicated onto each cluster of the window, as the
+        reference replicates it onto each device of its mesh;
+        ``stats["h2d_bytes"]`` / ``["d2d_bytes"]`` record that link
+        traffic under ``scfg.staging`` as the reference's
+        ``place_params`` does.  On the device the window holds one copy:
+        weights already there are adopted, not copied (the window engines
+        of a :class:`ServeTenant` share them); others are uploaded once.
         """
-        host = {name: t.detach().cpu().numpy()
-                for name, t in host_params.state_dict().items()}
-        placements = {name: bc.Placement(1) for name in host}
-        counted = _ByteCounter()
-        if self.scfg.staging in bc.TREE_MODES:
-            placed = bc.place_pytree(
-                host, placements, self._get_stager(),
-                reshard=self.scfg.staging == "tree_reshard", stats=counted)
-        else:
-            placed = {}
-            for name, arr in host.items():
-                counted.h2d_bytes += bc.placement_bytes(arr, placements[name])
-                placed[name] = bc.upload(placements[name].to_clusters(arr),
-                                         self.device)
-        self.stats["h2d_bytes"] += counted.h2d_bytes
-        self.stats["d2d_bytes"] += counted.d2d_bytes
+        state = params.state_dict()
+        for t in state.values():
+            self._count_replicated(t.numel() * t.element_size())
+        if params.device == self.device:
+            self.params = params
+            return params
         model = Transformer(self.cfg, device="meta")
-        model.load_state_dict({k: v[0] for k, v in placed.items()},
-                              assign=True)
+        model.load_state_dict(
+            {name: bc.upload(t.detach().cpu().numpy(), self.device)
+             for name, t in state.items()}, assign=True)
         self.params = model
         return model
 
@@ -499,3 +501,147 @@ class ServeEngine:
         self.unit.collect(job)
         self.stats["xla_dispatches"] += 1
         self.stats["tokens_emitted"] += tokens
+
+
+class ServeTenant:
+    """A lease-holding serve tenant: elastic grow/shrink between bursts.
+
+    A ``ServeTenant`` holds a *floor* lease on the
+    :class:`~repro_torch.core.fabric.FabricScheduler` and, per decode burst
+    (one ``generate`` / ``generate_many`` call), grows toward its
+    preferred ``burst`` size using whatever clusters are free, shrinking
+    back to the floor when the burst completes — offload tenants get the
+    head-room between bursts, the serve/offload split of the fabric.
+
+    One :class:`ServeEngine` is kept per distinct lease window (the
+    scheduler's in-place resizing makes the windows recur), with its own
+    caches and counters, as in the reference.  Where the reference places
+    one replica of the weights per device of each window's mesh, the
+    windows here are logical clusters of one device: every engine shares
+    one copy of the weights, and each counts the link bytes of its own
+    window's placement (:meth:`ServeEngine.place_params`).  ``params``
+    may be host weights, placed at the first burst, or a model already on
+    the scheduler's device, adopted as it is.
+    """
+
+    def __init__(self, scheduler: FabricScheduler, cfg: ModelConfig,
+                 host_params: Optional[Transformer], scfg: ServeConfig, *,
+                 tenant: str = "serve",
+                 floor: int = 1,
+                 burst: Optional[int] = None,
+                 call: CallConfig = CallConfig()):
+        if floor < 1:
+            raise ValueError(f"floor must be >= 1, got {floor}")
+        self.scheduler = scheduler
+        self.cfg, self.scfg, self.call = cfg, scfg, call
+        #: the weights every window engine shares (the caller's until the
+        #: first burst places them on the device)
+        self.params = host_params
+        self.floor = floor
+        self.burst = scheduler.num_clusters if burst is None else burst
+        if self.burst < floor:
+            raise ValueError(
+                f"burst size {self.burst} below the floor {floor}")
+        self.lease: ClusterLease = scheduler.request(
+            Tenant(tenant, kind=TenantKind.SERVE), n=floor)
+        # the scheduler's overload ladder shrinks elastic serve leases
+        # (back to, then below, this floor) before revoking anything
+        scheduler.register_elastic(self.lease, floor)
+        self._engines: Dict[Tuple[int, ...], ServeEngine] = {}
+
+    def _engine(self) -> ServeEngine:
+        key = self.lease.clusters
+        eng = self._engines.get(key)
+        if eng is None:
+            eng = ServeEngine(self.cfg, self.params, self.scfg, self.call,
+                              device=self.lease.device, cluster_ids=key)
+            self.params = eng.place_params(self.params)
+            self._engines[key] = eng
+        return eng
+
+    def _sync(self) -> None:
+        # a fabric failover (FabricScheduler.fail_clusters) replaces the
+        # lease object in place — same id, healthy window — leaving this
+        # tenant's reference stale; refresh it before keying any
+        # scheduler call (or engine cache) on the window
+        cur = self.scheduler.current_lease(self.lease)
+        if cur is not None and cur is not self.lease:
+            self.lease = cur
+        # overload pressure may have shrunk the floor itself (graceful
+        # degradation); adopt the scheduler's view so _grow/_shrink
+        # target the degraded floor instead of fighting the ladder
+        floor = self.scheduler.elastic_floor(self.lease)
+        if floor is not None and floor != self.floor:
+            self.floor = floor
+
+    def _grow(self) -> None:
+        self._sync()
+        # the global free count is an upper bound; the free space may be
+        # fragmented into windows smaller than it, so walk the target
+        # down until a contiguous grow (or relocation) fits — a burst
+        # takes the largest window available, never fails the generate
+        headroom = len(self.scheduler.free_clusters())
+        target = max(self.floor, min(self.burst, self.lease.n + headroom))
+        while target > self.lease.n:
+            try:
+                self.lease = self.scheduler.resize(self.lease, target)
+                return
+            except LeaseUnavailable:
+                target -= 1
+
+    def _shrink(self) -> None:
+        self._sync()
+        if self.lease.n > self.floor:
+            self.lease = self.scheduler.resize(self.lease, self.floor)
+        elif self.lease.n < self.floor:
+            # a failover or the overload ladder left the lease under the
+            # floor; growing back is best-effort while pressure persists
+            try:
+                self.lease = self.scheduler.resize(self.lease, self.floor)
+            except LeaseUnavailable:
+                pass
+
+    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+        """One decode burst: grow the lease, generate, shrink back."""
+        self._grow()
+        try:
+            return self._engine().generate(prompts, n_new)
+        finally:
+            self._shrink()
+
+    def generate_many(self, requests: Sequence[Tuple[np.ndarray, int]],
+                      arrival_steps: Optional[Sequence[int]] = None
+                      ) -> List[np.ndarray]:
+        """One continuous-batching burst under the elastic lease."""
+        self._grow()
+        try:
+            return self._engine().generate_many(requests, arrival_steps)
+        finally:
+            self._shrink()
+
+    @property
+    def windows(self) -> Tuple[Tuple[int, ...], ...]:
+        """Every lease window this tenant has served a burst on (each
+        backs one warm engine), smallest first."""
+        return tuple(sorted(self._engines, key=len))
+
+    @property
+    def peak_burst(self) -> int:
+        """The widest burst window served so far (clusters)."""
+        return max((len(w) for w in self._engines), default=self.lease.n)
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        """Engine counters summed across every lease window served."""
+        agg: Dict[str, int] = {}
+        for eng in self._engines.values():
+            for k, v in eng.stats.items():
+                agg[k] = agg.get(k, 0) + v
+        return agg
+
+    def close(self) -> None:
+        """Release the floor lease (the tenant leaves the fabric)."""
+        self._sync()
+        self.scheduler.unregister_elastic(self.lease)
+        if self.lease.active:
+            self.lease.release()

@@ -40,9 +40,7 @@ def _params(fn):
     return tuple(out)
 
 
-NOT_YET_PORTED = ("BackupOffload", "Fix", "PerfFinding", "ServeTenant",
-                  "StepWatchdog", "WatchdogConfig", "elastic_restore",
-                  "lint", "lint_graph")
+NOT_YET_PORTED = ("elastic_restore",)
 
 ENUMS = {
     "Staging": ("DIRECT", "HOST_FANOUT", "TREE", "TREE_RESHARD"),
@@ -84,6 +82,11 @@ SAME = (
     "predict_recovery", "estimate", "predict_staging", "Diagnostic",
     "Diagnostic.to_json", "Diagnostic.from_json", "Diagnostic.as_error",
     "explain", "verify", "verify_graph", "verify_policy",
+    "lint", "lint_graph", "Fix", "PerfFinding", "PerfFinding.key",
+    "PerfFinding.to_payload", "PerfFinding.from_payload", "StepWatchdog",
+    "StepWatchdog.deadline", "StepWatchdog.observe", "StepWatchdog.is_late",
+    "WatchdogConfig", "BackupOffload", "BackupOffload.run", "ServeTenant",
+    "ServeTenant.generate_many", "ServeTenant.close",
 )
 
 

@@ -156,15 +156,28 @@ def test_session_and_scheduler_default_to_the_card(monkeypatch):
 
 
 def test_lint_raises_until_perflint_is_ported():
-    with pytest.raises(NotImplementedError, match="perflint"):
-        t_api.Session("cpu", num_clusters=2, lint=True)
-    sess = t_api.Session("cpu", num_clusters=2)
+    """The perf linter is ported: ``Session(lint=True)``, ``submit(...,
+    lint=True)`` and ``submit_graph(..., lint=True)`` raise nothing and
+    return the linter's findings (``tests/test_torch_perflint.py`` holds
+    them to the reference's)."""
+    assert not hasattr(t_session, "_LINT_MISSING")
     job = t_jobs.make_axpy(64)
     ops, _ = job.make_instance(0)
-    with pytest.raises(NotImplementedError, match="perflint"):
-        sess.submit(job, ops, lint=True)
-    with pytest.raises(NotImplementedError, match="perflint"):
-        sess.submit_graph([t_api.GraphNode(job, ops)], lint=True)
+    insts, _ = t_jobs.make_instances(job, 16)
+    for sess, lint in ((t_api.Session("cpu", num_clusters=2, lint=True),
+                        None),
+                       (t_api.Session("cpu", num_clusters=2), True)):
+        h = sess.submit(job, insts, policy=AUTO.pinned(window=1), lint=lint)
+        h.wait()
+        assert "OFLP103" in {f.code for f in h.findings}
+        assert "perf findings" in h.explain().table()
+        gh = sess.submit_graph([t_api.GraphNode(job, ops)], lint=lint)
+        gh.wait()
+        assert gh.findings == []
+    plain = t_api.Session("cpu", num_clusters=2)
+    h = plain.submit(job, insts, policy=AUTO.pinned(window=1))
+    h.wait()
+    assert h.findings == []
 
 
 # ---------------------------------------------------------------------------
