@@ -42,7 +42,14 @@ no JAX and nothing of the reference package.
    / warm / resident per-dispatch wall times and the plan counters; one
    fused dispatch (B=8) per job and one tree staging at n=32.  The kernels'
    launch counts are zeroed just before this phase and read just after.
-   Then the session layer (``session_phase``), the perf linter
+   The resident dispatches of this phase replay captured CUDA graphs
+   (``core/graphs.py``), and the counts include their launches.  Then
+   the resident dispatch as a graph against the same dispatch run eagerly
+   (``graphs_offload_phase``: six jobs x {baseline, extended} x n at the
+   larger sizes; results at 1e-9 and bit-identical to eager, traces
+   equal, each graph one chain of dependent nodes with the baseline's
+   2(n-1) hops in it, read from libcuda; resident ms alternated), the
+   session layer (``session_phase``), the perf linter
    (``lint_phase``: ``Session(lint=True)``, one submission per OFLP1##
    code, each fix run against its original, the model's cycles beside the
    card's ms) and ``BackupOffload`` (``backup_phase``: primary clusters
@@ -71,7 +78,12 @@ no JAX and nothing of the reference package.
    same prompts in two bursts around an offload ``Session`` on the
    head-room and a failover of its floor window; both bursts' tokens must
    be the ``step`` mode's, and the peak memory shows one copy of the
-   weights.
+   weights.  Then the decode programs as graphs (``graphs_phase``): every
+   mode's captured tokens, and ``generate_many``'s, identical to an
+   engine running the same bodies eagerly, seeded temperature draws
+   too; decode ms per step, eager body against the captured step and
+   chunk graphs, alternated, with busy shares, capture seconds, pool
+   bytes, node counts and the bytes a step must move.
 6. SSM scan: the hand-written kernel against ``ref.ssm_scan`` over
    ``tests/test_kernels.py``'s scan sweep (f32 at 2e-4), S = 1, N = 32 and
    64, a D that leaves a channel group short, a given ``h0`` with the
@@ -87,7 +99,8 @@ no JAX and nothing of the reference package.
    counts are zeroed just before and read just after: every prefill must
    run the scan kernel once per chunk of every layer.  Then the prefill
    logits with the kernel against the plain scan, and the prefill / decode
-   times, peak memory and busy shares.
+   times, peak memory and busy shares; then ``graphs_phase`` as for
+   Yi-9B.
 8. The ``kernels:`` line with the counts, one JSON line of the kernels'
    numbers, the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -198,6 +211,12 @@ SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
 LINT_PASSES = 5
 #: the serve tenant: its floor lease and burst size, in logical clusters
 TENANT = dict(floor=1, burst=8)
+#: the graphs phases: alternated timing passes (eager, captured, captured,
+#: eager) of each resident dispatch; decode steps timed a pass; the seeded
+#: temperature run
+GRAPH_PASSES = 3
+GRAPH_STEPS = 16
+GRAPH_TEMP = dict(temperature=1.5, seed=11, new_tokens=10)
 
 
 class Checks:
@@ -636,7 +655,9 @@ def serving_phase(check, report):
     torch.cuda.empty_cache()
     return {"launches": launches, "cfg": cfg, "model": model,
             "prompts": prompts, "tokens": outs["step"], "max_len": max_len,
-            "peak": peak}
+            "peak": peak, "outs": outs, "static": st,
+            "param_bytes": param_bytes,
+            "many": (reqs, arrivals.tolist(), many)}
 
 
 def scan_work(shape, itemsize, h0, state):
@@ -754,7 +775,9 @@ def scan_phase(check, report, time_ms):
 
 def ssm_serving_phase(check, report):
     """falcon-mamba-7b at its published width through ``ServeEngine`` on
-    the card.  Returns the launch counts of the serving run."""
+    the card.  Returns what the graphs phase reuses: the launch counts of
+    the serving run, the config, the model (still on the card), the
+    prompts and every mode's greedy tokens."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticStream
@@ -927,9 +950,11 @@ def ssm_serving_phase(check, report):
         "decode_ms_per_step": decode_ms, "prefill_logits": prefill_cmp,
         "busy": busy, "max_memory_allocated": peak, "launches": launches,
         "tokens_row0": outs["step"][0].tolist()}
-    del model, cache
+    del cache
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "cfg": cfg, "model": model,
+            "prompts": prompts, "outs": outs, "static": st,
+            "max_len": max_len, "param_bytes": param_bytes}
 
 
 def _intervals_ms(intervals):
@@ -1719,6 +1744,290 @@ def tenant_phase(check, report, served, device=None):
     return launches
 
 
+def eager_programs(device):
+    """A graph cache that runs every program's eager body: swapped into a
+    runtime or an engine, it gives the eager side of the captured-vs-eager
+    checks through the same code (the port itself has no such switch)."""
+    from repro_torch.core import graphs
+
+    class Eager(graphs.GraphCache):
+        def run(self, key, make_body, **kw):
+            return make_body()()
+
+    return Eager(device)
+
+
+def graphs_offload_phase(check, report, device=None, sizes=None):
+    """Resident offload as captured CUDA graphs (``core/graphs.py``):
+    every job at the offload phase's larger size, baseline and extended,
+    n in ``NS``, on a runtime that captures and on one that runs the same
+    dispatches eagerly (``eager_programs``).
+
+    Checks: three resident dispatches with changed job args (the new
+    value copied into the graph's args buffer), waited in reverse order,
+    within rtol=atol=1e-9 of the expected values and bit-identical to the
+    eager runtime's; the launch traces equal; each graph one chain of
+    dependent nodes whose count exceeds the extended graph's by the
+    baseline's 2(n-1) chain and counter hops (read from libcuda); the
+    kernel of each kernel job launched once a replay.  Times: resident
+    ``offload().wait()`` ms, eager and captured alternated.  Returns the
+    launch counts of the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.core import graphs, jobs
+    from repro_torch.core.offload import (
+        OffloadConfig, OffloadRuntime, count_collectives,
+    )
+    from repro_torch.core.policy import Residency
+    from repro_torch.kernels import build
+
+    sizes = sizes or {name: OFFLOAD_SIZES[name][1] for name in jobs.PAPER_JOBS}
+    on_card = device is None
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    print("== graphs: resident offload, captured vs eager, six jobs x "
+          f"{{baseline, extended}} x n in {NS}", flush=True)
+    configs = {"baseline": OffloadConfig.baseline(),
+               "extended": OffloadConfig.extended()}
+    rows, nodes = [], {}
+    build.reset_counts()
+    for cname, cfg in configs.items():
+        rt = OffloadRuntime(device, config=cfg)
+        eager = OffloadRuntime(device, config=cfg)
+        eager._graphs = eager_programs(eager.device)
+        for name in jobs.PAPER_JOBS:
+            job = jobs.PAPER_JOBS[name](*sizes[name])
+            operands, expected = job.make_instance(3)
+            for n in NS:
+                tag = f"{cname:8s} {job.spec.name:28s} n={n:2d}"
+                try:
+                    rt.offload(job, operands, n=n).wait()
+                except ValueError as e:
+                    check("not divisible" in str(e), f"graphs {tag}: {e}")
+                    continue
+                eager.offload(job, operands, n=n).wait()
+                scales = (2.0, 3.0, 1.0)
+                got = {}
+                for side, r in (("captured", rt), ("eager", eager)):
+                    hs = [r.offload(job, Residency.RESIDENT, n=n,
+                                    job_args=np.full(8, a)) for a in scales]
+                    got[side] = [h.wait() for h in reversed(hs)][::-1]
+                close = all(np.allclose(g, expected * a, **JOB_TOL)
+                            for g, a in zip(got["captured"], scales))
+                same = all(np.array_equal(g, e) for g, e in
+                           zip(got["captured"], got["eager"]))
+                err = float(max(np.max(np.abs(g - expected * a))
+                                for g, a in zip(got["captured"], scales)))
+                check(close, f"graphs {tag}: captured result off by "
+                             f"{err:.3g}")
+                check(same, f"graphs {tag}: captured and eager results "
+                            f"differ")
+                pc, pe = rt.plan(job, n=n), eager.plan(job, n=n)
+                check(pc.fn.trace == pe.fn.trace
+                      and rt.launch_trace(job, n) == eager.launch_trace(
+                          job, n),
+                      f"graphs {tag}: launch traces differ")
+                g = rt._graphs.get(pc.build_key)
+                check(g is not None and g.replays >= len(scales) - 1,
+                      f"graphs {tag}: the resident dispatches did not "
+                      f"replay a graph")
+                kname = name if name in KERNEL_JOBS else None
+                check(g.launches == ({kname: 1} if kname else {}),
+                      f"graphs {tag}: a replay launches {g.launches}")
+                census = graphs.census(g) if on_card else {}
+                if on_card:
+                    check(census["depth"] == census["nodes"],
+                          f"graphs {tag}: the graph is not one chain of "
+                          f"dependent nodes: {census}")
+                    nodes[(cname, name, n)] = census["nodes"]
+
+                def once(r):
+                    sync()
+                    t0 = time.perf_counter()
+                    r.offload(job, Residency.RESIDENT, n=n).wait()
+                    return (time.perf_counter() - t0) * 1e3
+
+                ms = {"eager": [], "captured": []}
+                for _ in range(GRAPH_PASSES):
+                    for side, r in (("eager", eager), ("captured", rt),
+                                    ("captured", rt), ("eager", eager)):
+                        ms[side].append(once(r))
+                row = {"config": cname, "job": job.spec.name, "n": n,
+                       "max_abs_err": err, "bit_identical": same,
+                       "eager_ms": statistics.median(ms["eager"]),
+                       "captured_ms": statistics.median(ms["captured"]),
+                       "runs_ms": ms, "census": census,
+                       "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                       "collectives": {k: v for k, v in count_collectives(
+                           pc.fn.trace).items() if v}}
+                rows.append(row)
+                print(f"  {tag}: err {err:.2g}, bit-identical {same}; "
+                      f"resident eager {row['eager_ms']:.3f} ms, captured "
+                      f"{row['captured_ms']:.3f} ms; graph {census}, "
+                      f"capture {g.capture_s * 1e3:.1f} ms, pool "
+                      f"{g.pool_bytes} B; {row['collectives']}", flush=True)
+        del rt, eager
+        if on_card:
+            torch.cuda.empty_cache()
+    for (cname, name, n), count in nodes.items():
+        if cname != "baseline" or ("extended", name, n) not in nodes:
+            continue
+        extra = count - nodes[("extended", name, n)]
+        want = 2 * (n - 1) + 1 if n > 1 else -1
+        check(extra == want,
+              f"graphs {name} n={n}: the baseline graph has {extra} nodes "
+              f"more than the extended one, not its chain's {want}")
+    launches = build.launch_counts()
+    report["graphs_offload"] = {"rows": rows, "launches": launches}
+    print(f"  launches over the phase (replays included): "
+          + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+    return launches
+
+
+def graphs_phase(check, report, served):
+    """A served model's decode programs as captured CUDA graphs, at full
+    width (``served`` from ``serving_phase`` or ``ssm_serving_phase``).
+
+    1. Tokens: every mode's captured greedy tokens (the serving phase's
+       ``generate`` calls, and Yi-9B's ``generate_many``) identical to an
+       engine that runs the same bodies eagerly; at temperature
+       ``GRAPH_TEMP``, captured ``step`` and ``chunk`` identical to eager.
+    2. Decode ms per step, eager body against the captured step graph and
+       the captured chunk graph (per token), alternated, CUDA events over
+       ``GRAPH_STEPS`` steps a pass; the device busy share of each
+       (``torch.profiler``); capture seconds, the graphs' pool bytes and
+       their nodes (read from libcuda); the bytes a step must move
+       (every weight it reads once, the cache once) over 3.35 TB/s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import graphs
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import build_sampling_step
+
+    dev = torch.device("cuda")
+    cfg, model, prompts, st = (served["cfg"], served["model"],
+                               served["prompts"], served["static"])
+    print(f"== graphs: {cfg.name} decode, captured vs eager", flush=True)
+    out = report.setdefault("graphs_decode", {})[cfg.name] = {}
+
+    def engine(**kw):
+        return ServeEngine(cfg, model, ServeConfig(**dict(dict(
+            batch=st["batch"], max_len=served["max_len"],
+            decode_chunk=st["decode_chunk"]), **kw)))
+
+    eng = engine()
+    eng.graphs = eager_programs(eng.device)
+    eager = eng.generate(prompts, st["new_tokens"])
+    for mode, toks in served["outs"].items():
+        check(np.array_equal(toks, eager),
+              f"graphs {cfg.name}: captured {mode} tokens differ from the "
+              f"eager body's")
+    if "many" in served:
+        reqs, arrivals, many = served["many"]
+        eng = engine(batch=SERVE_MANY["batch"], max_len=SERVE_MANY["max_len"])
+        eng.graphs = eager_programs(eng.device)
+        many_eager = eng.generate_many(reqs, arrival_steps=arrivals)
+        check(all(np.array_equal(a, b) for a, b in zip(many, many_eager)),
+              f"graphs {cfg.name}: captured generate_many tokens differ "
+              f"from the eager ragged step's")
+    temp = {}
+    for mode, captured in (("step", True), ("step", False),
+                           ("chunk", True)):
+        eng = engine(decode_mode=mode, temperature=GRAPH_TEMP["temperature"],
+                     seed=GRAPH_TEMP["seed"])
+        if not captured:
+            eng.graphs = eager_programs(eng.device)
+        temp[(mode, captured)] = eng.generate(prompts,
+                                              GRAPH_TEMP["new_tokens"])
+    check(all(np.array_equal(t, temp[("step", False)])
+              for t in temp.values()),
+          f"graphs {cfg.name}: seeded draws differ between captured and "
+          f"eager at temperature {GRAPH_TEMP['temperature']}")
+    del eng
+    print(f"  tokens: {sorted(served['outs'])} captured == eager body"
+          + (", generate_many captured == eager" if "many" in served
+             else "") + f"; temperature {GRAPH_TEMP['temperature']} "
+          f"captured step/chunk == eager", flush=True)
+
+    # -- decode ms: eager body, captured step, captured chunk -------------
+    b, c, n = st["batch"], st["decode_chunk"], GRAPH_STEPS
+    max_len = st["prompt_len"] + 8 * n + 16
+    toks = torch.as_tensor(prompts).to(dev)
+    step_eng = engine(max_len=max_len)
+    step_eng.generate(prompts, 2)                # captures the step graph
+    chunk_eng = engine(max_len=max_len, decode_mode="chunk")
+    chunk_eng.generate(prompts, c + 1)           # captures the chunk graph
+    g_step = step_eng.graphs.get(("step", b, max_len, 1, 0.0))
+    g_chunk = chunk_eng.graphs.get(("chunk", b, max_len, c, 0.0))
+    _, cache = prefill(model, cfg, {"tokens": toks}, max_len)
+    step = build_sampling_step(model, cfg, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tok = toks[:, -1:]
+
+    def eager_step():
+        nonlocal tok, cache
+        tok, cache = step(cache, tok, gen)
+
+    def per_step(fn, calls, steps):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (calls * steps)
+
+    sides = {"eager": (eager_step, n, 1), "step graph": (g_step, n, 1),
+             "chunk graph": (g_chunk, n // c, c)}
+    runs = {k: [] for k in sides}
+    for k in ("eager", "step graph", "chunk graph", "chunk graph",
+              "step graph", "eager"):
+        fn, calls, steps = sides[k]
+        runs[k].append(per_step(fn, calls, steps))
+    ms = {k: statistics.mean(v) for k, v in runs.items()}
+    busy = {"eager": device_busy(eager_step, 3),
+            "step graph": device_busy(g_step, 3),
+            "chunk graph": device_busy(g_chunk, 1)}
+    census = {"step graph": graphs.census(g_step),
+              "chunk graph": graphs.census(g_chunk)}
+    cache_bytes = sum(t.numel() * t.element_size() for t in init_cache(
+        cfg, b, max_len, device="meta").values())
+    # every weight a step reads, once: all but the embedding table's
+    # unread rows (a tied table is the head, read whole)
+    unread = (0 if cfg.tie_embeddings else
+              (cfg.vocab_size - b) * cfg.d_model * model.embed.element_size())
+    read_bytes = served["param_bytes"] - unread + cache_bytes
+    bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
+    out.update({"tokens_equal": True, "decode_ms_per_step": ms,
+                "runs_ms": runs, "busy": busy, "census": census,
+                "capture_s": {"step graph": g_step.capture_s,
+                              "chunk graph": g_chunk.capture_s},
+                "pool_bytes": {"step graph": g_step.pool_bytes,
+                               "chunk graph": g_chunk.pool_bytes},
+                "bound_ms": bound_ms, "read_bytes": read_bytes,
+                "max_len": max_len, "param_bytes": served["param_bytes"],
+                "cache_bytes": cache_bytes})
+    for k in sides:
+        bz = busy[k]
+        print(f"  decode {k:11s}: {ms[k]:.3f} ms per step (passes "
+              f"{', '.join(f'{v:.3f}' for v in runs[k])}); busy share "
+              f"{bz['busy_share']:.3f}, {bz['launches']} device ops a "
+              f"call", flush=True)
+    for k in ("step graph", "chunk graph"):
+        g = g_step if k == "step graph" else g_chunk
+        print(f"  {k}: capture {g.capture_s:.3f} s, pool {g.pool_bytes} B, "
+              f"nodes {census[k]}", flush=True)
+    print(f"  a step must move {read_bytes} B (every f32 weight it reads "
+          f"once, the cache once): {bound_ms:.3f} ms at 3.35 TB/s; the "
+          f"captured step at {bound_ms / ms['step graph']:.3f} of that "
+          f"bound", flush=True)
+    del cache, step_eng, chunk_eng, g_step, g_chunk
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=os.path.join(ROOT, "chiprun_out"),
@@ -2101,6 +2410,7 @@ def main() -> int:
         return (counts["collective-permute"] == 0
                 and counts["all-reduce"] <= 2)
 
+    replayed = {}          # kernel launches made by graph replays
     for cname, cfg in configs.items():
         rt = OffloadRuntime(config=cfg)
         check(rt.num_clusters == 32 and rt.device.type == "cuda",
@@ -2127,6 +2437,13 @@ def main() -> int:
                     warm = [dispatch(rt, job, operands, n=n) for _ in range(5)]
                     res = [dispatch(rt, job, Residency.RESIDENT, n=n)
                            for _ in range(5)]
+                    # the resident dispatches replay the plan's graph
+                    g = rt._graphs.get(plan.build_key)
+                    check(g is not None and g.replays == 4,
+                          f"{tag}: resident dispatches replayed "
+                          f"{None if g is None else g.replays} times, not 4")
+                    for k, v in g.launches.items():
+                        replayed[k] = replayed.get(k, 0) + v * g.replays
                     results = [got] + [w[0] for w in warm + res]
                     match = all(np.allclose(r, expected, **JOB_TOL)
                                 for r in results)
@@ -2263,6 +2580,10 @@ def main() -> int:
         del rt
     torch.cuda.empty_cache()
 
+    # -- 3b'. the resident dispatch as captured graphs, against eager ------
+    graphs_offload_phase(check, report)
+    torch.cuda.empty_cache()
+
     # -- 3c. the session layer over the same runtime ----------------------
     session_launches = session_phase(check, report)
     for name in KERNEL_JOBS:
@@ -2282,21 +2603,31 @@ def main() -> int:
     served = serving_phase(check, report)
     serve_launches = served["launches"]
     tenant_phase(check, report, served)
+    graphs_phase(check, report, served)
     del served
 
     # -- 6-7. the SSM scan, then serving falcon-mamba ----------------------
     torch.cuda.empty_cache()
     scan_row = scan_phase(check, report, time_ms)
     torch.cuda.empty_cache()
-    ssm_launches = ssm_serving_phase(check, report)
+    ssm_served = ssm_serving_phase(check, report)
+    ssm_launches = ssm_served["launches"]
+    graphs_phase(check, report, ssm_served)
+    del ssm_served
+    torch.cuda.empty_cache()
 
     # -- 8. what the main paths launched, and the result lines ---------------
     launches["flash_attention"] = serve_launches["flash_attention"]
     launches["ssm_scan"] = ssm_launches["ssm_scan"]
-    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
+          + "; of these, by graph replays: "
+          + " ".join(f"{k}={v}" for k, v in replayed.items()))
     for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
         check(launches[name] > 0,
               f"its main path never launched the {name} kernel")
+    for name in KERNEL_JOBS:
+        check(replayed.get(name, 0) > 0,
+              f"no graph replay launched the {name} kernel")
     line = []
     rows = dict(main_rows, flash_attention=flash_row, ssm_scan=scan_row)
     for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
@@ -2313,6 +2644,7 @@ def main() -> int:
                      "library_device_ms": row["library_device_ms"],
                      "shapes": row["shapes"], "dtype": row["dtype"]})
     report["kernels"] = line
+    report["replayed_launches"] = replayed
     report["failed"] = check.failed
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

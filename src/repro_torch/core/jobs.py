@@ -86,6 +86,12 @@ class PaperJob:
     #:   "mean" — psum / n (Monte Carlo per-shard estimates)
     #:   None   — computed redundantly on every cluster (broadcast class)
     reduce: str | None = None
+    #: for a compute whose loop runs until its data says stop (BFS: until
+    #: the frontier is empty, one host read a level), the number of
+    #: iterations it runs on these operands; ``compute(*ops, trips=k)``
+    #: then runs k of them and reads nothing on the host — the program a
+    #: CUDA graph captures for operands that stay resident
+    loop_trips: Callable[..., int] | None = None
 
 
 # ----------------------------------------------------------------------------
@@ -323,12 +329,15 @@ def make_bfs(V: int = 256, seed_graph: int = 0) -> PaperJob:
     def make_instance(seed: int):
         return {"adj": adj.astype(np.float64)}, reference_distances().astype(np.float64)
 
-    def compute(adj_f):
+    def levels(adj_f, trips=None):
         # The reference's lax.while_loop as a Python loop over levels: the
         # loop condition is one host sync per level.  Batched (clusters x
         # fused jobs) instances run until every frontier is empty; a
         # finished instance's empty frontier reaches nothing, so its
-        # distances stay put, as under the reference's vmap.
+        # distances stay put, as under the reference's vmap.  With
+        # ``trips`` the loop runs that many levels and reads nothing on
+        # the host (the levels after the last non-empty frontier change
+        # nothing).  -> (distances, levels run)
         lead = adj_f.shape[:-2]
         V_ = adj_f.shape[-1]
         dist = torch.full(lead + (V_,), -1.0, dtype=DTYPE, device=adj_f.device)
@@ -336,14 +345,18 @@ def make_bfs(V: int = 256, seed_graph: int = 0) -> PaperJob:
         frontier = torch.zeros_like(dist)
         frontier[..., 0] = 1.0
         adj_t = adj_f.mT
-        d = 0.0
-        while bool(frontier.sum() > 0):
+        d = 0
+        while (d < trips if trips is not None
+               else bool(frontier.sum() > 0)):
             reach = torch.matmul(adj_t, frontier.unsqueeze(-1)).squeeze(-1) > 0
             newly = reach & (dist < 0)
             dist = torch.where(newly, d + 1.0, dist)
             frontier = newly.to(DTYPE)
-            d += 1.0
-        return dist
+            d += 1
+        return dist, d
+
+    def compute(adj_f, trips=None):
+        return levels(adj_f, trips)[0]
 
     return PaperJob(
         spec=bfs_spec(V),
@@ -351,6 +364,7 @@ def make_bfs(V: int = 256, seed_graph: int = 0) -> PaperJob:
         compute=compute,
         shard_axes={"adj": None},
         out_axis=None,  # computed redundantly; runtime keeps one copy
+        loop_trips=lambda adj_f: levels(adj_f)[1],
     )
 
 

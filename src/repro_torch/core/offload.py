@@ -60,6 +60,25 @@ The launch trace replaces the reference's HLO checks: every built program
 records the steps of its last run (:meth:`OffloadRuntime.launch_trace`),
 and :func:`count_collectives` counts them under the reference's HLO
 collective names.
+
+Captured dispatch
+-----------------
+
+The reference runs each plan's program as one compiled executable; on
+the card the port replays it as a CUDA graph (:mod:`repro_torch.core.
+graphs`).  A plan's ``_Program`` is captured the first time it runs on
+the plan's resident operands, with those buffers and the plan's cached
+job-args buffer as the graph's inputs, keyed like :meth:`_build`; every
+later resident dispatch replays it and copies its result and arrivals out
+on the launch stream, so each handle owns its tensors.  A changed job-args
+value is uploaded as before and copied into that same buffer, ordered by
+the stream.  ``invalidate``, a restage and a donating dispatch drop the
+plan's graph.  What stays eager: dispatches that stage fresh operands
+(cold and warm offloads, ``OffloadStream``'s and ``submit_graph``'s
+staged submits — their time is staging), and every plan of a donating
+config.  The baseline's job-info chain and central counter stay n−1
+dependent device operations inside the graph, one node each; the launch
+trace is the capture call's.
 """
 
 from __future__ import annotations
@@ -73,6 +92,7 @@ import torch
 
 from repro_torch.analysis import sanitizer as _san
 from repro_torch.core import broadcast as bc
+from repro_torch.core import graphs
 from repro_torch.core import multicast as mc
 from repro_torch.core.completion import (
     CompletionUnit,
@@ -453,10 +473,12 @@ class DispatchPlan:
             None if job.out_axis is None else job.out_axis + lead,
             job.reduce)
 
-        self.fn = runtime._build(
-            job, self.cluster_ids, n,
-            tuple(name for name, _, _ in op_meta), self.args_shape,
-            fuse=fuse)
+        op_names = tuple(name for name, _, _ in op_meta)
+        #: the program cache's key, which also keys this plan's graph
+        self.build_key = runtime._build_key(
+            job, self.cluster_ids, n, op_names, self.args_shape, fuse)
+        self.fn = runtime._build(job, self.cluster_ids, n, op_names,
+                                 self.args_shape, fuse=fuse)
 
         self._resident: Dict[str, torch.Tensor] = {}   # name -> device buffer
         self._resident_src: Dict[str, np.ndarray] = {}  # name -> host array
@@ -571,6 +593,7 @@ class DispatchPlan:
         if slot is None:
             self._resident = staged
             self._staged_via = via
+            self._drop_graph()     # its inputs were the replaced buffers
         else:
             self._slots[slot] = staged
         s = _san.active()
@@ -691,8 +714,13 @@ class DispatchPlan:
                     s.track(staged[name], f"renamed operand {name!r}")
         return staged, fwd_bytes
 
+    def _drop_graph(self) -> None:
+        self.runtime._graphs.drop(self.build_key)
+
     def invalidate(self, names: Optional[Sequence[str]] = None) -> None:
-        """Drop resident operand buffers (all, or a named subset)."""
+        """Drop resident operand buffers (all, or a named subset), and the
+        plan's captured program that read them."""
+        self._drop_graph()
         s = _san.active()
         if s is not None:
             dropped = (self._resident.items() if names is None else
@@ -754,7 +782,15 @@ class DispatchPlan:
         dev = self._put(np.asarray(host), self.args_placement,
                         self._resolve_via(via))
         # a sharded (n, ...) array is (n, 1, ...) cluster-major
-        self._args_dev = dev.reshape((self.n_clusters,) + job_args.shape)
+        dev = dev.reshape((self.n_clusters,) + job_args.shape)
+        graph = self.runtime._graphs.get(self.build_key)
+        if graph is not None and any(t is self._args_dev
+                                     for t in graph.bound):
+            # the plan's graph reads this buffer: the new value goes into
+            # it, after the launches queued before on this stream
+            self._args_dev.copy_(dev)
+        else:
+            self._args_dev = dev
         self.stats.device_puts += 1
         self._args_val = job_args.copy()
         return self._args_dev
@@ -765,6 +801,7 @@ class DispatchPlan:
         if self.runtime.config.donate_operands and consumed_resident:
             # donated buffers are dead; keep host refs so reuse self-heals
             self._resident.clear()
+            self._drop_graph()
 
 
 def _chain_distribute(args: torch.Tensor, n: int,
@@ -791,7 +828,10 @@ class _Program:
     the job-info distribution, phase F (one kernel launch over clusters ×
     fused jobs), the cross-cluster combination and the completion
     synchronization, and returns ``(result, arrivals)`` without
-    synchronizing.  ``trace`` holds the steps of the last call.
+    synchronizing.  ``trace`` holds the steps of the last call.  With
+    ``trips``, a job whose loop reads its data (``PaperJob.loop_trips``)
+    runs that many iterations and reads nothing on the host
+    (:meth:`bind`).
     """
 
     def __init__(self, job: PaperJob, config: OffloadConfig, n: int,
@@ -803,7 +843,17 @@ class _Program:
         self.done = torch.ones(n, dtype=torch.float32, device=device)
         self.trace: List[TraceEntry] = []
 
-    def __call__(self, args: torch.Tensor, *ops: torch.Tensor
+    def bind(self, args: torch.Tensor, ops: Sequence[torch.Tensor]):
+        """This program on these buffers as a body of no arguments, the
+        form a CUDA graph captures: a data-dependent loop is fixed at the
+        trip count these operands give it now (the graph is dropped when
+        they are replaced)."""
+        trips = (None if self.job.loop_trips is None
+                 else self.job.loop_trips(*ops))
+        return lambda: self(args, *ops, trips=trips)
+
+    def __call__(self, args: torch.Tensor, *ops: torch.Tensor,
+                 trips: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         job, n, trace = self.job, self.n, []
         # Phases B/C/D: job-information distribution.
@@ -815,7 +865,8 @@ class _Program:
         # job-info scale rides through the result, so a broken
         # distribution corrupts it (tested).
         trace.append(("compute", job.spec.name))
-        out = job.compute(*ops)
+        out = (job.compute(*ops) if trips is None
+               else job.compute(*ops, trips=trips))
         scale = local_args[..., 0].to(out.dtype)
         out = out * scale.reshape(scale.shape + (1,) * (out.ndim - scale.ndim))
         if job.out_axis is not None:
@@ -871,6 +922,8 @@ class OffloadRuntime:
         self.unit = CompletionUnit(n_units=n_units)
         self._job_counter = 0
         self._compiled: Dict[Tuple, _Program] = {}
+        #: captured resident programs, keyed like ``_compiled``
+        self._graphs = graphs.GraphCache(self.device)
         self._traces: Dict[Tuple, List[TraceEntry]] = {}  # launch_trace cache
         self._plans: Dict[Tuple, DispatchPlan] = {}
         self._retired_stats = PlanStats()   # counts from replaced plans
@@ -1006,7 +1059,7 @@ class OffloadRuntime:
             op_dev = plan.resident_operands()
         else:
             op_dev = plan.stage(operands)
-        return self._launch(plan, args_dev, op_dev)
+        return self._launch(plan, args_dev, op_dev, resident=resident)
 
     def offload_fused(
         self,
@@ -1086,17 +1139,20 @@ class OffloadRuntime:
         # donation needs no defensive snapshot of it
         op_dev = (plan.resident_operands() if resident
                   else plan.stage(stacked, _caller_owned=False, via=staging))
-        handle = self._launch(plan, args_dev, op_dev)
+        handle = self._launch(plan, args_dev, op_dev, resident=resident)
         return FusedHandle(handle.job_id, handle.result, handle.arrivals,
                            plan.n_clusters, handle.dispatched_at, self,
                            plan.cluster_ids, plan, batch=B)
 
     def _launch(self, plan: DispatchPlan, args_dev: torch.Tensor,
                 op_dev: Dict[str, torch.Tensor],
-                consumed_resident: bool = True) -> JobHandle:
+                consumed_resident: bool = True,
+                resident: bool = False) -> JobHandle:
         """The dispatch tail shared by offload/offload_fused: program a
         completion unit, launch the program (async), return the in-flight
-        handle."""
+        handle.  ``resident`` says ``op_dev`` are the plan's resident
+        buffers: the program then runs as the plan's graph on the card
+        (unless the config donates them)."""
         job_id = self._job_counter
         self._job_counter += 1
         self.unit.program(plan.n_clusters, job_id)
@@ -1112,7 +1168,13 @@ class OffloadRuntime:
         if s is not None:
             for name, buf in op_bufs:
                 s.read(buf, f"launch {job_id} operand {name!r}")
-        result, arrivals = plan.fn(args_dev, *(buf for _, buf in op_bufs))
+        bufs = tuple(buf for _, buf in op_bufs)
+        if resident and not self.config.donate_operands:
+            result, arrivals = self._graphs.run(
+                plan.build_key, lambda: plan.fn.bind(args_dev, bufs),
+                bound=(args_dev,) + bufs, copy=True)
+        else:
+            result, arrivals = plan.fn(args_dev, *bufs)
         plan._after_dispatch(consumed_resident=consumed_resident)
         if self.config.donate_operands:
             for name, buf in op_bufs:
@@ -1132,11 +1194,18 @@ class OffloadRuntime:
 
     # -- program construction ---------------------------------------------------------
 
+    def _build_key(self, job: PaperJob, cluster_ids: Sequence[int], n: int,
+                   op_names: Tuple[str, ...], args_shape: Tuple[int, ...],
+                   fuse: Optional[int] = None) -> Tuple:
+        """The reference's ``_build`` cache key (a program per key)."""
+        return (job.spec.name, self.config, n, op_names, tuple(args_shape),
+                tuple(cluster_ids), fuse)
+
     def _build(self, job: PaperJob, cluster_ids: Tuple[int, ...], n: int,
                op_names: Tuple[str, ...], args_shape: Tuple[int, ...],
                fuse: Optional[int] = None) -> _Program:
-        key = (job.spec.name, self.config, n, op_names, args_shape,
-               tuple(cluster_ids), fuse)
+        key = self._build_key(job, cluster_ids, n, op_names, args_shape,
+                              fuse)
         prog = self._compiled.get(key)
         if prog is None:
             prog = _Program(job, self.config, n, fuse, self.device)

@@ -1221,7 +1221,7 @@ class Session:
                 win.make_room(_drain)
                 args_dev = plan.stage_args(job_args, via=via)
                 staged = plan.resident_operands()
-                handle = rt._launch(plan, args_dev, staged)
+                handle = rt._launch(plan, args_dev, staged, resident=True)
             else:
                 ops = dict(nd.operands)
                 sources = {}

@@ -155,7 +155,8 @@ class OffloadStream:
         self._inflight.make_room(lambda h: h.wait())
         args_dev = self.plan.stage_args(job_args, via=self.staging)
         handle = self.runtime._launch(self.plan, args_dev, staged,
-                                      consumed_resident=resident)
+                                      consumed_resident=resident,
+                                      resident=resident)
         self._inflight.push(handle)
         self._seq += 1
         self._stats["submitted"] += 1

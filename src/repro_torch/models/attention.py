@@ -13,7 +13,10 @@ The reference's "stub" (the flash-substitution measurement) comes with
 
 Decode (one query token against a cache) is a separate path in plain
 torch, on the card too, as the reference keeps it always-XLA: it is a
-matrix-vector product per head, bound by streaming the cache.
+matrix-vector product per head, bound by streaming the cache.  It reads
+no tensor value on the host (the position is a device scalar, the cache
+is attended over its full length under a mask), so the serve engine
+captures it into a CUDA graph (``core/graphs.py``).
 
 Parameters ``p`` are one layer's attention weights as a mapping
 (``p["wq"]`` …), the reference's tree; projections cast each weight to the
@@ -196,24 +199,27 @@ def _decode_attend(q, kk, vv, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
     return o.reshape(b, hq, 1, d).to(dtype)
 
 
-def gqa_decode(x, p: Params, cfg: ModelConfig, k_cache, v_cache, pos: int):
-    """One-token decode: write the caches at `pos`, attend over
-    cache[:pos+1].
+def gqa_decode(x, p: Params, cfg: ModelConfig, k_cache, v_cache, pos):
+    """One-token decode: write the caches at `pos`, attend over the whole
+    cache with the columns past `pos` masked, as the reference does.
 
-    k_cache/v_cache: (B, Smax, Hkv*dh), updated in place (the reference
-    returns new arrays; the port writes the one cell).  Returns
-    (out, k_cache, v_cache)."""
+    ``pos`` is a device int32 scalar (or a Python int): the row is written
+    with a device-side index op and the mask is ``arange(Smax) <= pos``,
+    so no shape depends on it and nothing is read on the host — the body
+    a CUDA graph captures once per cache length.  k_cache/v_cache: (B,
+    Smax, Hkv*dh), updated in place (the reference returns new arrays;
+    the port writes the one cell).  Returns (out, k_cache, v_cache)."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    positions = pos.expand(b, 1)
     q, k, v = gqa_project(x, p, cfg, positions)            # (B,H,1,d)
-    k_cache[:, pos] = _merge_heads(k)[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = _merge_heads(v)[:, 0].to(v_cache.dtype)
-    # columns past pos are masked to exactly 0 weight in the reference, so
-    # attending over the live prefix alone computes the same function
-    kk = _split_heads(k_cache[:, :pos + 1], cfg.n_kv_heads)
-    vv = _split_heads(v_cache[:, :pos + 1], cfg.n_kv_heads)
-    valid = torch.ones((1, 1, 1, pos + 1), dtype=torch.bool, device=x.device)
-    o = _decode_attend(q, kk, vv, valid, cfg, x.dtype)
+    idx = pos.to(torch.long).reshape(1)
+    k_cache.index_copy_(1, idx, _merge_heads(k).to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, _merge_heads(v).to(v_cache.dtype))
+    kk = _split_heads(k_cache, cfg.n_kv_heads)             # (B,Hkv,Smax,d)
+    vv = _split_heads(v_cache, cfg.n_kv_heads)
+    valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
+    o = _decode_attend(q, kk, vv, valid[None, None, None, :], cfg, x.dtype)
     out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
     return out, k_cache, v_cache
 

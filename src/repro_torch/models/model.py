@@ -326,8 +326,9 @@ def forward(model: Transformer, cfg: ModelConfig,
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                dtype_str: Optional[str] = None, device=None) -> Cache:
     """The KV cache: ``k``/``v`` (L, B, max_len, Hkv·dh) and ``pos``, the
-    next position to write (a Python int: the host drives the loop).  For
-    the ``ssm`` family the state cache: ``conv`` (L, B, K-1, d_inner), the
+    next position to write (a device int32 scalar, as in the reference:
+    a decode step reads it on the device, never on the host).  For the
+    ``ssm`` family the state cache: ``conv`` (L, B, K-1, d_inner), the
     last K-1 pre-conv inputs, ``h`` (L, B, d_inner, N) float32 and
     ``pos``."""
     require_ported(cfg)
@@ -339,25 +340,46 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                 "h": torch.zeros((cfg.n_layers, batch_size, cfg.d_inner,
                                   s.d_state), dtype=torch.float32,
                                  device=device),
-                "pos": 0}
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     kvd = cfg.n_kv_heads * cfg.head_dim
     shape = (cfg.n_layers, batch_size, max_len, kvd)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
-            "pos": 0}
+            "pos": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def _into(cache: Optional[Cache], cfg: ModelConfig, b: int, max_len: int,
+          device) -> Cache:
+    """``cache`` reset to :func:`init_cache`'s zeros (a caller's static
+    cache, which a captured decode program reads at fixed addresses), or
+    a new one."""
+    if cache is None:
+        return init_cache(cfg, b, max_len, device=device)
+    want = init_cache(cfg, b, max_len, device="meta")
+    for name, t in want.items():
+        got = cache[name]
+        if got.shape != t.shape or got.dtype != t.dtype:
+            raise ValueError(
+                f"cache[{name!r}] is {tuple(got.shape)}/{got.dtype}, the "
+                f"prefill needs {tuple(t.shape)}/{t.dtype}")
+        got.zero_()
+    return cache
 
 
 def prefill(model: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor], max_len: int,
-            call: CallConfig = CallConfig()) -> Tuple[torch.Tensor, Cache]:
+            call: CallConfig = CallConfig(),
+            cache: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """Process a full prompt -> (last-position logits (B, 1, V), primed
-    cache).  The ``ssm`` family's cache holds no positions, so ``max_len``
-    does not bound its prompt (as in the reference)."""
+    cache).  With ``cache`` (an :func:`init_cache` of this batch and
+    ``max_len``) the prompt is written into it, in place; otherwise into a
+    new one.  The ``ssm`` family's cache holds no positions, so
+    ``max_len`` does not bound its prompt (as in the reference)."""
     require_ported(cfg)
     x, positions, prefix_len = embed_inputs(model, cfg, batch)
     b, s = x.shape[0], x.shape[1]
     if cfg.family == "ssm":
-        cache = init_cache(cfg, b, max_len, device=x.device)
+        cache = _into(cache, cfg, b, max_len, x.device)
         for i, lp in enumerate(_layer_list(model, cfg, call)):
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
             y, (conv_tail, h_last) = ssm_lib.mamba1_block(
@@ -365,12 +387,12 @@ def prefill(model: Transformer, cfg: ModelConfig,
             x = x + y
             cache["conv"][i] = conv_tail.to(cache["conv"].dtype)
             cache["h"][i] = h_last
-        cache["pos"] = s
+        cache["pos"].fill_(s)
         return unembed(model, cfg, x[:, -1:]), cache
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
     dt = x.dtype
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    cache = _into(cache, cfg, b, max_len, x.device)
     for i, lp in enumerate(_layer_list(model, cfg, call)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
         q, k, v = attn.gqa_project(h, lp["attn"], cfg, positions)
@@ -382,7 +404,7 @@ def prefill(model: Transformer, cfg: ModelConfig,
         cache["v"][i, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
         x = x + _mlp(h, lp, cfg)
-    cache["pos"] = s
+    cache["pos"].fill_(s)
     return unembed(model, cfg, x[:, -1:]), cache
 
 
@@ -396,17 +418,21 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Cache,
                 ) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B, 1) -> (logits (B, 1, V) f32, cache).  The cache's
     tensors are written in place at ``cache["pos"]``; the returned dict
-    holds the same tensors and ``pos + 1``."""
+    holds the same tensors and ``pos + 1`` (a new device scalar).
+
+    The position stays on the device and attention covers the whole cache
+    under a mask, so no shape depends on it and no tensor value is read
+    on the host: one CUDA graph captures the step for every position
+    (``core/graphs.py``)."""
     require_ported(cfg)
     dt = _dtype(cfg.compute_dtype)
-    pos = int(cache["pos"])
+    pos = torch.as_tensor(cache["pos"], dtype=torch.int32,
+                          device=model.device)
     tokens = torch.as_tensor(tokens, device=model.device)
     b = tokens.shape[0]
     x = _embed_tokens(model, cfg, tokens)
     if cfg.pos_embedding == "sinusoidal":
-        positions = torch.full((b, 1), pos, dtype=torch.int32,
-                               device=x.device)
-        x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
+        x = x + sinusoidal_positions(pos.expand(b, 1), cfg.d_model).to(dt)
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
             lp = model.layer_params(i)

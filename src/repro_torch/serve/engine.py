@@ -14,8 +14,16 @@ or one chunk of steps).  The batch is not split over the window: batch
 rows are computed independently, so greedy tokens do not depend on it.
 The reference's jitted program builders become plain closures over the
 model (``build_serve_step``, ``build_sampling_step``,
-``build_decode_chunk``, ``build_ragged_step``); PyTorch runs them eagerly
-and the card queues their work asynchronously.
+``build_decode_chunk``, ``build_ragged_step``).  On the card the engine
+runs each as a captured CUDA graph (``core/graphs.py``), one per (mode,
+batch, max_len, chunk, temperature), captured at its first call and
+replayed across ``generate`` calls: the engine owns one static decode
+state per (batch, max_len) — the cache prefill writes into, the pending
+token, the ragged positions — which the graphs read and rewrite in place,
+and it copies each step's tokens out on the launch stream.  Its sampling
+generator is registered with every graph, so a replay draws what the
+eager body would.  Prefill stays eager.  On the CPU the same bodies run
+eagerly.
 
 Decode modes, as in the reference:
 
@@ -23,9 +31,9 @@ Decode modes, as in the reference:
   step; the token never visits the host between steps.  Zero
   host->device transfers per decoded token.
 * ``decode_mode="chunk"`` — ``decode_chunk`` steps per dispatch, counted
-  as one job by the CompletionUnit.  Here it is a loop of single steps
-  (capturing it as one CUDA graph is later work); a trailing remainder
-  runs through the single-step closure, as in the reference.
+  as one job by the CompletionUnit: on the card one graph replay; a
+  trailing remainder runs through the single-step program, as in the
+  reference.
 * ``decode_mode="host"`` — the host round-trip loop: fetch the logits,
   sample on the host, upload the token.  The measurable "before".
 
@@ -64,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import broadcast as bc
+from repro_torch.core import graphs
 from repro_torch.core.completion import CompletionUnit
 from repro_torch.core.fabric import (
     ClusterLease, FabricScheduler, LeaseUnavailable, Tenant,
@@ -127,8 +136,9 @@ def build_sampling_step(model: Transformer, cfg: ModelConfig,
 def build_decode_chunk(model: Transformer, cfg: ModelConfig,
                        temperature: float, chunk: int,
                        call: CallConfig = CallConfig()):
-    """``chunk`` tokens per call, a loop of the single step's body:
-    (cache, tok (B, 1), generator) -> (toks (B, chunk), tok', cache)."""
+    """``chunk`` tokens per call, a loop of the single step's body (one
+    graph on the card): (cache, tok (B, 1), generator) -> (toks (B,
+    chunk), tok', cache)."""
     step = build_sampling_step(model, cfg, temperature, call)
 
     def chunk_fn(cache, tok, generator):
@@ -158,6 +168,33 @@ def build_ragged_step(model: Transformer, cfg: ModelConfig,
         nxt = sample(logits[:, 0], generator)
         return nxt[:, None], pos_b + active.to(pos_b.dtype), cache
     return step
+
+
+class DecodeState:
+    """The static decode state of one (batch, max_len): the cache prefill
+    writes into, the pending token, and the ragged step's per-slot
+    positions and done-mask.  The captured decode programs read and
+    rewrite these tensors in place, at fixed addresses."""
+
+    def __init__(self, cfg: ModelConfig, batch: int, max_len: int,
+                 device: torch.device):
+        self.cache = init_cache(cfg, batch, max_len, device=device)
+        self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        self.pos_b = torch.zeros((batch,), dtype=torch.int32, device=device)
+        self.active = torch.zeros((batch,), dtype=torch.int32,
+                                  device=device)
+
+    def advance(self, tok: torch.Tensor, cache) -> None:
+        """Take a step's token and position (its k/v or state were written
+        in place)."""
+        self.tok.copy_(tok)
+        self.cache["pos"].copy_(cache["pos"])
+
+    def reset(self) -> None:
+        """Back to :func:`init_cache`'s zeros (continuous batching starts
+        from an empty cache)."""
+        for t in (*self.cache.values(), self.tok, self.pos_b, self.active):
+            t.zero_()
 
 
 @dataclasses.dataclass
@@ -210,6 +247,10 @@ class ServeEngine:
                             else tuple(int(c) for c in cluster_ids))
         self.unit = CompletionUnit(n_units=8)
         self._jobid = 0
+        #: the decode programs, captured on the card (core/graphs.py)
+        self.graphs = graphs.GraphCache(self.device)
+        self._states: Dict[Tuple[int, int], DecodeState] = {}
+        self._gen: Optional[torch.Generator] = None
         self.stats = {"h2d_token_puts": 0, "xla_dispatches": 0,
                       "tokens_emitted": 0, "prefill_inserts": 0,
                       "requests_retired": 0, "batch_padded_rows": 0,
@@ -249,6 +290,8 @@ class ServeEngine:
         state = params.state_dict()
         for t in state.values():
             self._count_replicated(t.numel() * t.element_size())
+        # the captured decode programs read the weights they were built on
+        self.graphs = graphs.GraphCache(self.device)
         if params.device == self.device:
             self.params = params
             return params
@@ -294,23 +337,52 @@ class ServeEngine:
         if mode not in ("host", "step", "chunk"):
             raise ValueError(f"decode_mode {mode!r} not in host/step/chunk")
         tokens = torch.as_tensor(prompts).to(self.device)
-        logits, cache = prefill(model, self.cfg, {"tokens": tokens},
-                                self.scfg.max_len, self.call)
+        state = self._state()
+        logits, _ = prefill(model, self.cfg, {"tokens": tokens},
+                            self.scfg.max_len, self.call, cache=state.cache)
         if mode == "host":
-            out = self._generate_host_loop(model, logits, cache, n_new)
+            out = self._generate_host_loop(model, logits, state, n_new)
         else:
-            out = self._generate_resident(model, logits, cache, n_new)
+            out = self._generate_resident(model, logits, state, n_new)
         return out[:b]
 
-    def _generator(self, device: torch.device) -> torch.Generator:
-        return torch.Generator(device=device).manual_seed(self.scfg.seed)
+    def _state(self) -> DecodeState:
+        """The engine's static decode state for its (batch, max_len)."""
+        key = (self.scfg.batch, self.scfg.max_len)
+        state = self._states.get(key)
+        if state is None:
+            state = self._states[key] = DecodeState(self.cfg, *key,
+                                                    self.device)
+        return state
 
-    def _generate_resident(self, model, logits, cache,
+    def _generator(self, device: torch.device) -> torch.Generator:
+        """A generator seeded with ``scfg.seed``: on the engine's device
+        one generator, reseeded each call (the decode graphs are
+        registered with it); on the host a new one."""
+        if device != self.device:
+            return torch.Generator(device=device).manual_seed(self.scfg.seed)
+        if self._gen is None:
+            self._gen = torch.Generator(device=device)
+        return self._gen.manual_seed(self.scfg.seed)
+
+    def _program(self, mode: str, chunk: int, make_body, *,
+                 copy: bool = False):
+        """Run the decode program ``mode`` once: the graph of (mode,
+        batch, max_len, chunk, temperature) on the card, the body
+        eagerly on the CPU."""
+        key = (mode, self.scfg.batch, self.scfg.max_len, chunk,
+               self.scfg.temperature)
+        gens = () if self._gen is None else (self._gen,)
+        return self.graphs.run(key, make_body, generators=gens, copy=copy)
+
+    def _generate_resident(self, model, logits, state: DecodeState,
                            n_new: int) -> np.ndarray:
         """Device-resident decode: the token never visits the host."""
         gen = self._generator(self.device)
-        sample = _sampler(self.scfg.temperature)
+        temp = self.scfg.temperature
+        sample = _sampler(temp)
         tok = sample(logits[:, -1], gen)[:, None]
+        state.tok.copy_(tok)
         # the prefill-token sample is a dispatch emitting token 0
         self.stats["xla_dispatches"] += 1
         self.stats["tokens_emitted"] += 1
@@ -319,42 +391,66 @@ class ServeEngine:
         done = 0
         if self.scfg.decode_mode == "chunk" and self.scfg.decode_chunk > 1:
             c = self.scfg.decode_chunk
-            chunk_fn = build_decode_chunk(model, self.cfg,
-                                          self.scfg.temperature, c, self.call)
+
+            def make_chunk():
+                chunk_fn = build_decode_chunk(model, self.cfg, temp, c,
+                                              self.call)
+
+                def body():
+                    ys, nxt, cache = chunk_fn(state.cache, state.tok, gen)
+                    state.advance(nxt, cache)
+                    return ys
+                return body
+
             while steps - done >= c:
                 job = self._dispatch_begin()
-                ys, tok, cache = chunk_fn(cache, tok, gen)
+                toks.append(self._program("chunk", c, make_chunk, copy=True))
                 self._dispatch_end(job, tokens=c)
-                toks.append(ys)
                 done += c
         if done < steps:
-            step_fn = build_sampling_step(model, self.cfg,
-                                          self.scfg.temperature, self.call)
+            def make_step():
+                step_fn = build_sampling_step(model, self.cfg, temp,
+                                              self.call)
+
+                def body():
+                    nxt, cache = step_fn(state.cache, state.tok, gen)
+                    state.advance(nxt, cache)
+                    return state.tok
+                return body
+
             while done < steps:
                 job = self._dispatch_begin()
-                tok, cache = step_fn(cache, tok, gen)
+                toks.append(self._program("step", 1, make_step).clone())
                 self._dispatch_end(job, tokens=1)
-                toks.append(tok)
                 done += 1
         out = torch.cat(toks, dim=1).cpu().numpy()     # the one drain
         if out.shape[1] != n_new:
             raise AssertionError((out.shape, n_new))
         return out
 
-    def _generate_host_loop(self, model, logits, cache,
+    def _generate_host_loop(self, model, logits, state: DecodeState,
                             n_new: int) -> np.ndarray:
         """The host round trip: sample on the host, upload each token."""
         sample = _sampler(self.scfg.temperature)
         gen = self._generator(torch.device("cpu"))
-        step_fn = build_serve_step(model, self.cfg, self.call)
+
+        def make_step():
+            step_fn = build_serve_step(model, self.cfg, self.call)
+
+            def body():
+                lg, cache = step_fn(state.cache, state.tok)
+                state.cache["pos"].copy_(cache["pos"])
+                return lg
+            return body
+
         out = []
         tok = sample(logits[:, -1].cpu(), gen)
         for _ in range(n_new):
             out.append(tok)
             job = self._dispatch_begin()
-            tok_dev = tok[:, None].to(self.device)
+            state.tok.copy_(tok[:, None])          # the upload
             self.stats["h2d_token_puts"] += 1
-            logits, cache = step_fn(cache, tok_dev)
+            logits = self._program("host", 1, make_step)
             tok = sample(logits[:, 0].cpu(), gen)
             self._dispatch_end(job, tokens=1)
         return torch.stack(out, dim=1).numpy()
@@ -402,15 +498,22 @@ class ServeEngine:
                     f"prompt ({prompt.size}) + n_new ({m}) exceeds "
                     f"max_len {scfg.max_len}")
 
-        step_fn = build_ragged_step(model, self.cfg, scfg.temperature,
-                                    self.call)
         B = scfg.batch
-        dev = self.device
-        cache = init_cache(self.cfg, B, scfg.max_len, device=dev)
-        tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-        pos_b = torch.zeros((B,), dtype=torch.int32, device=dev)
-        active = torch.zeros((B,), dtype=torch.int32, device=dev)
-        gen = self._generator(dev)
+        state = self._state()
+        state.reset()
+        gen = self._generator(self.device)
+
+        def make_step():
+            step_fn = build_ragged_step(model, self.cfg, scfg.temperature,
+                                        self.call)
+
+            def body():
+                nxt, pos_b, cache = step_fn(state.cache, state.tok,
+                                            state.pos_b, state.active, gen)
+                state.advance(nxt, cache)
+                state.pos_b.copy_(pos_b)
+                return state.tok
+            return body
 
         slots: List[Optional[Dict[str, int]]] = [None] * B
         free = list(range(B))
@@ -427,15 +530,14 @@ class ServeEngine:
             while queue and free:
                 r = queue.popleft()
                 j = free.pop(0)
-                tok = self._insert(model, cache, tok, pos_b, active, j,
-                                   reqs[r][0])
+                self._insert(model, state, j, reqs[r][0])
                 slots[j] = {"req": r, "remaining": reqs[r][1]}
             if all(s is None for s in slots):
                 t = arrivals[order[pi]]     # batch idle: skip to next arrival
                 continue
             # one resident decode step advances every occupied slot
             job = self._dispatch_begin()
-            tok, pos_b, cache = step_fn(cache, tok, pos_b, active, gen)
+            tok = self._program("ragged", 1, make_step).clone()
             live = [(j, s["req"]) for j, s in enumerate(slots)
                     if s is not None]
             self._dispatch_end(job, tokens=len(live))
@@ -448,7 +550,7 @@ class ServeEngine:
                     slots[j] = None
                     free.append(j)
                     free.sort()
-                    active[j] = 0
+                    state.active[j] = 0
                     self.stats["requests_retired"] += 1
             t += 1
 
@@ -461,13 +563,14 @@ class ServeEngine:
                     results[r].append(tk_host[j, 0])
         return [np.asarray(seq, np.int32) for seq in results]
 
-    def _insert(self, model, cache, tok, pos_b, active, slot: int,
-                prompt: np.ndarray) -> torch.Tensor:
+    def _insert(self, model, state: DecodeState, slot: int,
+                prompt: np.ndarray) -> None:
         """Admit ``prompt`` into ``slot``: bucketed prefill of
-        ``prompt[:-1]`` written into the slot's cache rows (in place); the
-        last prompt token becomes the slot's pending decode token at
-        position ``len(prompt) - 1``.  Returns the new token tensor (a
-        copy: the old one is a logged step output)."""
+        ``prompt[:-1]`` written into the slot's cache rows; the last
+        prompt token becomes the slot's pending decode token at position
+        ``len(prompt) - 1`` (all in place in the static state; the logged
+        step tokens are copies)."""
+        cache = state.cache
         s = int(prompt.size)
         if s > 1:
             bucket = max(1, self.scfg.prefill_bucket)
@@ -480,13 +583,11 @@ class ServeEngine:
                                 self.scfg.max_len, self.call)
             cache["k"][:, slot:slot + 1] = pcache["k"]
             cache["v"][:, slot:slot + 1] = pcache["v"]
-        tok = tok.clone()
-        tok[slot, 0] = int(prompt[-1])
+        state.tok[slot, 0] = int(prompt[-1])
         self.stats["h2d_token_puts"] += 1   # the pending prompt token
-        pos_b[slot] = s - 1
-        active[slot] = 1
+        state.pos_b[slot] = s - 1
+        state.active[slot] = 1
         self.stats["prefill_inserts"] += 1
-        return tok
 
     # -- completion accounting (one offloaded job per dispatch) -------------------
 
