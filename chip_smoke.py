@@ -101,8 +101,21 @@ no JAX and nothing of the reference package.
    logits with the kernel against the plain scan, and the prefill / decode
    times, peak memory and busy shares; then ``graphs_phase`` as for
    Yi-9B.
-8. The ``kernels:`` line with the counts, one JSON line of the kernels'
-   numbers, the card line, and last ``{"ok": true, "device": {...}}``.
+8. Serving zamba2-2.7b (the fourth main path, the hybrid family): 54
+   Mamba-2 layers (d 2560, d_inner 5120 = 80 heads x 64, N 64) and the
+   shared attention block (32/32 heads of 80) after every 6th, at its
+   published width (2,422,670,240 float32 weights from a seeded
+   generator, bf16 compute), the same prompts and modes as falcon-mamba;
+   every prefill must run the scan kernel 108 times (a chunk of 256 of
+   every layer) and the flash kernel 9 times; the prefill logits with both
+   kernels against both plain versions; then ``graphs_phase``.  The flash
+   and scan phases also time the two kernels at this model's shapes (q
+   (4, 32, 512, 80) bf16; a, b (4, 256, 5120, 64) f32) and the expanded
+   decay of one of its chunks.
+9. The ``kernels:`` line with the counts (the flash kernel's from Yi-9B's
+   and zamba2's runs, the scan's from falcon-mamba's and zamba2's), one
+   JSON line of the kernels' numbers, the card line, and last ``{"ok":
+   true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
 measured is also written to ``DIR/chip_smoke.json`` (default
@@ -201,6 +214,14 @@ SSM_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
 #: one scan call of its prefill: a chunk of 256 tokens of the 4 prompts,
 #: d_inner 8192, d_state 16
 SCAN_PREFILL_SHAPE = (4, 256, 8192, 16)
+#: the hybrid serving phase: zamba2-2.7b at its published width, and one
+#: scan call of its prefill (a chunk of 256 tokens of the 4 prompts, D =
+#: H·P = 80·64, N 64), and one flash call (its shared block's 32 heads of
+#: 80 over the 512-token prompts)
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
+HYBRID_SCAN_SHAPE = (4, 256, 5120, 64)
+HYBRID_FLASH_SHAPE = ((4, 32, 512, 80), (4, 32, 512, 80))
 #: the scan kernel against ref.ssm_scan: tests/test_kernels.py:139 in f32
 #: (the two sum in another order, and the kernel fuses each step's
 #: multiply-add); in bf16 both round one f32 result to bf16 once
@@ -410,6 +431,7 @@ def flash_phase(check, report, time_ms):
 
     b, st = SERVE_STATIC["batch"], SERVE_STATIC["prompt_len"]
     row = timed((b, 32, st, 128), (b, 4, st, 128), "prefill")  # Yi-9B's
+    timed(*HYBRID_FLASH_SHAPE, "zamba2 prefill")   # head dim 80, padded
     timed(*FLASH_OPS_SHAPE, "operations-bound")
     return row
 
@@ -738,55 +760,75 @@ def scan_phase(check, report, time_ms):
         compare(a, b, c, None, tag)
         compare(a, b, c, h0, tag)
 
-    shape = SCAN_PREFILL_SHAPE
-    bsz, chunk, d, n = shape
-    g = torch.Generator(device=dev).manual_seed(0)
-    a = torch.rand(shape, generator=g, device=dev) * 0.299 + 0.7
-    b = torch.randn(shape, generator=g, device=dev) * 0.1
-    c = torch.randn((bsz, chunk, n), generator=g, device=dev)
-    h0 = torch.randn((bsz, d, n), generator=g, device=dev)
-    err = compare(a, b, c, h0, "prefill")
-    nbytes, nops = scan_work(shape, 4, True, True)
+    def timed(shape, tag):
+        """The kernel at one chunk of a prefill, h0 given and the final
+        state returned (as the serving path calls it), timed beside its
+        plain version and its bound."""
+        bsz, chunk, d, n = shape
+        g = torch.Generator(device=dev).manual_seed(0)
+        a = torch.rand(shape, generator=g, device=dev) * 0.299 + 0.7
+        b = torch.randn(shape, generator=g, device=dev) * 0.1
+        c = torch.randn((bsz, chunk, n), generator=g, device=dev)
+        h0 = torch.randn((bsz, d, n), generator=g, device=dev)
+        err = compare(a, b, c, h0, tag)
+        nbytes, nops = scan_work(shape, 4, True, True)
 
-    def kernel(a, b, c, h0):
-        return ops.ssm_scan(a, b, c, h0=h0, return_state=True, impl="kernel")
+        def kernel(a, b, c, h0):
+            return ops.ssm_scan(a, b, c, h0=h0, return_state=True,
+                                impl="kernel")
 
-    row = {"kernel": "ssm_scan", "tag": "prefill chunk", "dtype": str(f32),
-           "shapes": [list(shape), list(c.shape)], "max_abs_err": err,
-           "ms": time_ms(lambda: kernel(a, b, c, h0)),
-           "device_ms": device_ms(kernel, rotation((a, b, c, h0), nbytes)),
-           "plain_ms": time_ms(lambda: ref.ssm_scan(a, b, c, h0=h0,
-                                                    return_state=True)),
-           # no single PyTorch call scans
-           "library_ms": None, "library_device_ms": None}
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
-    row["bound_ms"], row["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
-                                        else (t_ops, "operations"))
-    report["kernel_times"].append(row)
-    print(f"  time ssm_scan prefill chunk f32 {list(shape)}, h0 and final "
-          f"state: kernel {row['ms']:.4f} ms (device "
-          f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
-          f"library - (none), bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
-    del a, b, c, h0
+        row = {"kernel": "ssm_scan", "tag": tag, "dtype": str(f32),
+               "shapes": [list(shape), list(c.shape)], "max_abs_err": err,
+               "ms": time_ms(lambda: kernel(a, b, c, h0)),
+               "device_ms": device_ms(kernel,
+                                      rotation((a, b, c, h0), nbytes)),
+               "plain_ms": time_ms(lambda: ref.ssm_scan(
+                   a, b, c, h0=h0, return_state=True)),
+               # no single PyTorch call scans
+               "library_ms": None, "library_device_ms": None}
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = nops / PEAK_OPS_PER_S["float32"] * 1e3
+        row["bound_ms"], row["bound_by"] = (
+            (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+        report["kernel_times"].append(row)
+        print(f"  time ssm_scan {tag} f32 {list(shape)}, h0 and final "
+              f"state: kernel {row['ms']:.4f} ms (device "
+              f"{row['device_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
+              f"library - (none), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}: {nbytes} B, {nops} ops)", flush=True)
+        return row
+
+    row = timed(SCAN_PREFILL_SHAPE, "prefill chunk")      # falcon-mamba's
+    timed(HYBRID_SCAN_SHAPE, "zamba2 prefill chunk")
+
+    # zamba2's decay of one chunk, one scalar per (token, head), expanded
+    # over (P, N) into the (B, chunk, H*P, N) tensor the kernel reads
+    from repro_torch.models import get
+    from repro_torch.models.ssm import expanded_decay
+    bsz, chunk, d, n = HYBRID_SCAN_SHAPE
+    hp = get(HYBRID_ARCH).ssm.headdim
+    g = torch.Generator(device=dev).manual_seed(1)
+    dtc = torch.rand((bsz, chunk, d // hp), generator=g, device=dev) * 0.1
+    a_vec = -torch.rand((d // hp,), generator=g, device=dev) - 0.5
+    nbytes = bsz * chunk * d * n * 4 + dtc.numel() * 4 + a_vec.numel() * 4
+    expand = {"what": "expanded_decay", "shape": list(HYBRID_SCAN_SHAPE),
+              "ms": time_ms(lambda: expanded_decay(dtc, a_vec, hp, n)),
+              "device_ms": device_ms(lambda x, y: expanded_decay(x, y, hp, n),
+                                     [[dtc, a_vec]]),
+              "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+    report["expanded_decay"] = expand
+    print(f"  time zamba2's expanded decay a chunk {list(HYBRID_SCAN_SHAPE)} "
+          f"f32: {expand['ms']:.4f} ms (device {expand['device_ms']:.4f}), "
+          f"bound {expand['bound_ms']:.4f} ms (bytes: {nbytes} B written)",
+          flush=True)
     return row
 
 
 def ssm_serving_phase(check, report):
     """falcon-mamba-7b at its published width through ``ServeEngine`` on
-    the card.  Returns what the graphs phase reuses: the launch counts of
-    the serving run, the config, the model (still on the card), the
-    prompts and every mode's greedy tokens."""
-    import numpy as np
-    import torch
-    from repro_torch.data import DataConfig, SyntheticStream
-    from repro_torch.kernels import build
-    from repro_torch.models import CallConfig, get, init_params, prefill
-    from repro_torch.serve import ServeConfig, ServeEngine
-    from repro_torch.serve.engine import build_sampling_step
+    the card (``serve_state_model``)."""
+    from repro_torch.models import get
 
-    dev = torch.device("cuda")
     cfg = get(SSM_ARCH)
     s1 = cfg.ssm
     check((cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner, s1.d_state,
@@ -794,11 +836,73 @@ def ssm_serving_phase(check, report):
            cfg.tie_embeddings)
           == ("ssm", 64, 4096, 8192, 16, 4, 256, 65024, False),
           f"{cfg.name} is not at its published width: {cfg}")
-    print(f"== serving: {cfg.name} ({cfg.n_layers} Mamba-1 layers, d "
-          f"{cfg.d_model}, d_inner {cfg.d_inner}, N {s1.d_state}, conv "
-          f"{s1.d_conv}, scan chunk {s1.chunk}, vocab {cfg.vocab_size}; "
-          f"{cfg.param_dtype} weights, {cfg.compute_dtype} compute)",
-          flush=True)
+    chunks = -(-SSM_STATIC["prompt_len"] // s1.chunk)
+    return serve_state_model(
+        check, report, cfg, SSM_STATIC, key="ssm_serving",
+        n_params=7_272_665_088, per_prefill={"ssm_scan":
+                                             cfg.n_layers * chunks},
+        shape=(f"{cfg.n_layers} Mamba-1 layers, d {cfg.d_model}, d_inner "
+               f"{cfg.d_inner}, N {s1.d_state}, conv {s1.d_conv}, scan "
+               f"chunk {s1.chunk}, vocab {cfg.vocab_size}"))
+
+
+def hybrid_serving_phase(check, report):
+    """zamba2-2.7b at its published width through ``ServeEngine`` on the
+    card (``serve_state_model``): 54 Mamba-2 layers, each prefill chunk a
+    scan of D = H·P = 5120 channels of N = 64 states, and the shared
+    attention block after every 6th layer through the flash kernel at
+    head dim 80."""
+    from repro_torch.models import get
+    from repro_torch.models.model import shared_config
+
+    cfg = get(HYBRID_ARCH)
+    s2, hb, scfg = cfg.ssm, cfg.hybrid, shared_config(cfg)
+    heads = cfg.d_inner // s2.headdim
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.d_inner, heads,
+           s2.headdim, s2.d_state, s2.d_conv, hb.period, scfg.n_heads,
+           scfg.n_kv_heads, scfg.head_dim, cfg.d_ff, cfg.vocab_size)
+          == ("hybrid", 54, 2560, 5120, 80, 64, 64, 4, 6, 32, 32, 80, 10240,
+              32000),
+          f"{cfg.name} is not at its published width: {cfg}")
+    chunks = -(-HYBRID_STATIC["prompt_len"] // s2.chunk)
+    per_prefill = {"ssm_scan": cfg.n_layers * chunks,
+                   "flash_attention": cfg.n_layers // hb.period}
+    check(per_prefill == {"ssm_scan": 108, "flash_attention": 9},
+          f"{cfg.name}: a prefill's launches would be {per_prefill}")
+    return serve_state_model(
+        check, report, cfg, HYBRID_STATIC, key="hybrid_serving",
+        n_params=2_422_670_240, per_prefill=per_prefill,
+        shape=(f"{cfg.n_layers} Mamba-2 layers, d {cfg.d_model}, d_inner "
+               f"{cfg.d_inner} = {heads} heads x {s2.headdim}, N "
+               f"{s2.d_state}, conv {s2.d_conv}, scan chunk {s2.chunk}; the "
+               f"shared block after every {hb.period}th layer: "
+               f"{scfg.n_heads}/{scfg.n_kv_heads} heads of {scfg.head_dim}, "
+               f"d_ff {cfg.d_ff}; vocab {cfg.vocab_size}"))
+
+
+def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
+                      shape):
+    """A model with a state cache (the ``ssm`` and ``hybrid`` families)
+    at its published width through ``ServeEngine`` on the card: random
+    f32 weights from a seeded generator, bf16 compute; ``generate`` in
+    every decode mode (identical greedy tokens), each prefill launching
+    every kernel of ``per_prefill`` that many times; ``generate_many``
+    raises, as the reference's does; the prefill logits with the kernels
+    against the plain versions in bf16 and f32 compute; prefill and decode
+    times, peak memory and busy shares.  Returns what the graphs phase
+    reuses: the launch counts of the serving run, the config, the model
+    (still on the card), the prompts and every mode's greedy tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.models import CallConfig, init_params, prefill
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve.engine import build_sampling_step
+
+    dev = torch.device("cuda")
+    print(f"== serving: {cfg.name} ({shape}; {cfg.param_dtype} weights, "
+          f"{cfg.compute_dtype} compute)", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -806,14 +910,13 @@ def ssm_serving_phase(check, report):
                         .manual_seed(0), device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
+    got_params = sum(p.numel() for p in model.parameters())
     param_bytes = sum(p.numel() * p.element_size()
                       for p in model.parameters())
-    check(n_params == 7_272_665_088, f"{n_params} parameters")
-    print(f"  init: {n_params} parameters, {param_bytes} B on the card in "
+    check(got_params == n_params, f"{got_params} parameters")
+    print(f"  init: {got_params} parameters, {param_bytes} B on the card in "
           f"{init_s:.2f} s", flush=True)
 
-    st = SSM_STATIC
     prompts = SyntheticStream(DataConfig(
         vocab_size=cfg.vocab_size, batch_size=st["batch"],
         seq_len=st["prompt_len"], seed=0), cfg).batch(0)["tokens"]
@@ -834,11 +937,11 @@ def ssm_serving_phase(check, report):
         stats[mode] = dict(eng.stats)
     launches = build.launch_counts()
 
-    chunks = -(-st["prompt_len"] // s1.chunk)
-    want = cfg.n_layers * chunks * len(outs)
-    check(launches["ssm_scan"] == want,
-          f"serving launched ssm_scan {launches['ssm_scan']} times, not once "
-          f"per chunk of each layer of {len(outs)} prefills ({want})")
+    for name, n in per_prefill.items():
+        want = n * len(outs)
+        check(launches[name] == want,
+              f"serving {cfg.name} launched {name} {launches[name]} times, "
+              f"not {n} times in each of {len(outs)} prefills ({want})")
     for mode, out in outs.items():
         check(out.shape == (st["batch"], st["new_tokens"])
               and out.min() >= 0 and out.max() < cfg.vocab_size,
@@ -851,18 +954,23 @@ def ssm_serving_phase(check, report):
         raised = False
     except NotImplementedError:
         raised = True
-    check(raised, "generate_many did not raise for the ssm family")
+    check(raised, f"generate_many did not raise for the {cfg.family} "
+                  f"family")
     for mode in outs:
         print(f"  generate {mode:5s}: batch {st['batch']} x "
               f"{st['prompt_len']} prompt tokens, {st['new_tokens']} new: "
               f"{wall[mode]:.3f} s wall; stats {stats[mode]}", flush=True)
+    print(f"  launches: " + " ".join(f"{k}={launches[k]}" for k in
+                                     per_prefill)
+          + f" ({per_prefill} a prefill)", flush=True)
     print(f"  step tokens, row 0: {outs['step'][0].tolist()}", flush=True)
     print("  generate_many: raises NotImplementedError, as the reference's",
           flush=True)
 
-    # -- prefill with the kernel against the plain scan ------------------
+    # -- prefill with the kernels against the plain versions --------------
     toks = torch.as_tensor(prompts).to(dev)
-    calls = {impl: CallConfig(ssm_impl=impl) for impl in ("kernel", "plain")}
+    calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl)
+             for impl in ("kernel", "plain")}
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     prefill_cmp = {}
     for tag, c in (("bfloat16", cfg), ("float32", f32)):
@@ -883,11 +991,11 @@ def ssm_serving_phase(check, report):
         else:
             ok = ok and bool((d.abs() <= tol["atol"]
                               + tol["rtol"] * lp.abs()).all())
-        check(ok, f"{cfg.name} prefill logits in {tag} compute, kernel vs "
-                  f"plain scan: {row['kernel']} outside {tol}")
+        check(ok, f"{cfg.name} prefill logits in {tag} compute, kernels vs "
+                  f"plain versions: {row['kernel']} outside {tol}")
         prefill_cmp[tag] = row
         print(f"  prefill logits, {tag} compute (max |logit| "
-              f"{row['max_abs_logit']:.4g}): kernel vs plain scan "
+              f"{row['max_abs_logit']:.4g}): kernels vs plain versions "
               f"max_abs_err {row['kernel']['max_abs_err']:.4g}, relative L2 "
               f"{row['kernel']['rel_l2']:.4g}; bar {tol}", flush=True)
         del lg, lp, d
@@ -905,7 +1013,9 @@ def ssm_serving_phase(check, report):
     prefill_ms = {impl: statistics.median(v) * 1e3
                   for impl, v in runs.items()}
     n_steps, n_prof = 16, 3
-    _, cache = prefill(model, cfg, {"tokens": toks}, max_len,
+    # room for every step timed below (the hybrid's K/V bound the position)
+    steps_len = max(max_len, st["prompt_len"] + n_steps + n_prof + 4)
+    _, cache = prefill(model, cfg, {"tokens": toks}, steps_len,
                        calls["kernel"])
     step = build_sampling_step(model, cfg, 0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -922,7 +1032,7 @@ def ssm_serving_phase(check, report):
     torch.cuda.synchronize()
     decode_ms = start.elapsed_time(end) / n_steps
     peak = torch.cuda.max_memory_allocated()
-    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): kernel "
+    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): kernels "
           f"{prefill_ms['kernel']:.3f} ms, plain {prefill_ms['plain']:.3f} "
           f"ms (median of 3, host clock); decode step (batch "
           f"{st['batch']}, step mode): {decode_ms:.3f} ms per step; peak "
@@ -943,13 +1053,13 @@ def ssm_serving_phase(check, report):
               f"{b['busy_share']:.3f}, {b['launches']} device ops; top "
               + "; ".join(f"{k[:40]} {us:.1f} us x{c}"
                           for k, us, c in b["top"]), flush=True)
-    report["ssm_serving"] = {
-        "arch": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
-        "init_s": init_s, "static": SSM_STATIC, "wall_s": wall,
+    report[key] = {
+        "arch": cfg.name, "n_params": got_params, "param_bytes": param_bytes,
+        "init_s": init_s, "static": st, "wall_s": wall,
         "stats": stats, "prefill_ms": prefill_ms, "prefill_runs_s": runs,
         "decode_ms_per_step": decode_ms, "prefill_logits": prefill_cmp,
         "busy": busy, "max_memory_allocated": peak, "launches": launches,
-        "tokens_row0": outs["step"][0].tolist()}
+        "per_prefill": per_prefill, "tokens_row0": outs["step"][0].tolist()}
     del cache
     torch.cuda.empty_cache()
     return {"launches": launches, "cfg": cfg, "model": model,
@@ -2616,9 +2726,18 @@ def main() -> int:
     del ssm_served
     torch.cuda.empty_cache()
 
-    # -- 8. what the main paths launched, and the result lines ---------------
-    launches["flash_attention"] = serve_launches["flash_attention"]
-    launches["ssm_scan"] = ssm_launches["ssm_scan"]
+    # -- 8. serving zamba2 (the hybrid: both model kernels) ----------------
+    hybrid_served = hybrid_serving_phase(check, report)
+    hybrid_launches = hybrid_served["launches"]
+    graphs_phase(check, report, hybrid_served)
+    del hybrid_served
+    torch.cuda.empty_cache()
+
+    # -- 9. what the main paths launched, and the result lines ---------------
+    launches["flash_attention"] = (serve_launches["flash_attention"]
+                                   + hybrid_launches["flash_attention"])
+    launches["ssm_scan"] = (ssm_launches["ssm_scan"]
+                            + hybrid_launches["ssm_scan"])
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + "; of these, by graph replays: "
           + " ".join(f"{k}={v}" for k, v in replayed.items()))

@@ -26,7 +26,12 @@ Captured, on the card:
   keyed like ``OffloadRuntime._build``;
 * the serve engine's decode programs (``serve/engine.py``): the sampling
   step, the decode chunk, the ``host`` mode's serve step and the ragged
-  step, keyed by (mode, batch, max_len, chunk, temperature).
+  step, keyed by (mode, batch, max_len, chunk, temperature).  Every family
+  the port builds captures the same way: the dense KV cache, the ssm
+  family's state (``conv``, ``h``) and the hybrid's state with its shared
+  block's K/V slots all stay at fixed addresses, and the hybrid's choice
+  of the layers the shared block follows is made on the static layer
+  index, not on a device value.
 
 Eager, everywhere: prefill (its shapes follow the prompt, and its time is
 the device's), every dispatch that stages fresh operands (cold and warm

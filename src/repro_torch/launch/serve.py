@@ -4,7 +4,11 @@
         --reduced --batch 4 --prompt-len 16 --new-tokens 32
 
 Runs on the card (``--device cuda``, the default, which raises without
-one); ``--device cpu`` serves on the CPU with the plain attention.
+one); ``--device cpu`` serves on the CPU with the plain attention.  Every
+family the port builds serves through ``generate`` (e.g. ``--arch
+zamba2-2.7b``, the hybrid family); ``--continuous`` needs the plain
+attention family and raises for the ssm and hybrid ones, as the
+reference's CLI does.
 Continuous batching (variable-length requests streamed into the fixed
 decode batch under a Poisson-ish arrival trace):
 

@@ -1,7 +1,7 @@
-"""The model path of the port: the dense GQA transformer and the Mamba-1
-SSM (twin of ``repro.models``, restricted to what is ported; ``loss_fn``
-comes with training, the other families with ROADMAP.md Queue 1 item
-12)."""
+"""The model path of the port: the dense GQA transformer, the Mamba-1 SSM
+and the Mamba-2 hybrid with Zamba2's shared attention block (twin of
+``repro.models``, restricted to what is ported; ``loss_fn`` comes with
+training, ROADMAP.md Queue 1 item 6, the other families with item 5)."""
 
 from repro_torch.models.config import (
     FrontendConfig, HybridConfig, MLAConfig, MoEConfig, ModelConfig, SSMConfig,

@@ -44,7 +44,7 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
     if impl == "stub":
         raise NotImplementedError(
             "attn_impl='stub' comes with launch/flashsub.py "
-            "(ROADMAP.md Queue 1 item 15)")
+            "(ROADMAP.md Queue 1 item 5, with item 7)")
     if impl not in IMPLS:
         raise ValueError(f"attn impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":

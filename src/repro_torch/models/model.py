@@ -1,17 +1,23 @@
 """Model assembly: init / forward / prefill / decode — twin of
-``repro.models.model`` for the dense and the SSM (Mamba-1) families.
+``repro.models.model`` for the dense, the SSM (Mamba-1) and the hybrid
+(Mamba-2 + Zamba2's shared attention block) families.
 
 The model is an ``nn.Module`` (:class:`Transformer`): the embedding, an
-``nn.ModuleList`` of layers (a decoder layer, or a Mamba-1 layer for the
-``ssm`` family), the final norm and the LM head.  Its parameter names
+``nn.ModuleList`` of layers (a decoder layer, a Mamba-1 layer for the
+``ssm`` family or a Mamba-2 layer for the ``hybrid`` one), the hybrid's
+one ``shared_block``, the final norm and the LM head.  Its parameter names
 follow the reference's tree with the layer index put in (``layers/attn/wq``
 stacked over L becomes ``layers.<i>.attn.wq``, ``layers/mixer/A_log``
-becomes ``layers.<i>.mixer.A_log``), so ``convert.model_params_from_numpy``
-maps one onto the other.  The reference's ``lax.scan`` over the stacked
-layers is a loop over the ``ModuleList``; every entry point is a function
-of (model, tensors), with the device taken from the model.
+becomes ``layers.<i>.mixer.A_log``; ``shared_block/attn/wq`` is not
+stacked and stays ``shared_block.attn.wq``), so
+``convert.model_params_from_numpy`` maps one onto the other.  The
+reference's ``lax.scan`` over the stacked layers is a loop over the
+``ModuleList``, and its ``lax.cond`` on the layer index (the shared block
+after every ``period``-th layer) a Python test on the loop's index; every
+entry point is a function of (model, tensors), with the device taken from
+the model.
 
-The other families — MoE, MLA, hybrid and the modality frontends — raise
+The other families — MoE, MLA and the modality frontends — raise
 :class:`NotImplementedError` naming the ROADMAP item that brings them.
 Of ``CallConfig``'s fields, the reference's sharding knobs
 (``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) have no
@@ -41,7 +47,8 @@ from repro_torch.models.layers import (
 Cache = Dict[str, Any]
 
 #: where each family the port cannot build yet comes from
-_WAITS = "ROADMAP.md Queue 1 item 12"
+_WAITS = "ROADMAP.md Queue 1 item 5"
+_BUILDS = "the port builds the dense, ssm and hybrid families only"
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -50,24 +57,38 @@ def _dtype(name: str) -> torch.dtype:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for every configuration the port cannot build yet: it builds
-    the dense family and the ``ssm`` family (Mamba-1)."""
-    parts = (("moe", cfg.moe), ("mla", cfg.mla), ("hybrid", cfg.hybrid),
-             ("frontend", cfg.frontend))
-    if cfg.family != "ssm":
+    the dense family, the ``ssm`` family (Mamba-1) and the ``hybrid``
+    family (Mamba-2 with a shared attention block)."""
+    parts = (("moe", cfg.moe), ("mla", cfg.mla), ("frontend", cfg.frontend))
+    if cfg.family != "hybrid":
+        parts += (("hybrid", cfg.hybrid),)
+    version = {"ssm": 1, "hybrid": 2}.get(cfg.family)
+    if version is None:
         parts += (("ssm", cfg.ssm),)
-    elif cfg.ssm is None or cfg.ssm.version != 1:
-        parts += (("Mamba-2", cfg.ssm),)
+    elif cfg.ssm is None or cfg.ssm.version != version:
+        parts += ((f"{cfg.family} family without Mamba-{version} layers",
+                   True),)
+    elif cfg.family == "hybrid" and cfg.hybrid is None:
+        parts += (("hybrid family without its shared block", True),)
     for what, present in parts:
         if present is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} part of the model is not ported "
-                f"yet (it comes with {_WAITS}); the port builds the dense "
-                "and ssm families only")
-    if cfg.family not in ("dense", "ssm"):
+                f"yet (it comes with {_WAITS}); {_BUILDS}")
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (it comes "
-            f"with {_WAITS}); the port builds the dense and ssm families "
-            "only")
+            f"with {_WAITS}); {_BUILDS}")
+
+
+def shared_config(cfg: ModelConfig) -> ModelConfig:
+    """The hybrid's shared attention block as a config of its own (the
+    reference's ``shared_cfg``): its heads, its KV heads, head dim
+    d_model // heads, no QKV bias."""
+    hb = cfg.hybrid
+    return dataclasses.replace(
+        cfg, n_heads=hb.shared_attn_heads, n_kv_heads=hb.shared_attn_kv_heads,
+        head_dim=cfg.d_model // hb.shared_attn_heads, qkv_bias=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +99,7 @@ class CallConfig:
     attn_chunk: int = 512
     ssm_impl: str = "auto"          # "plain" | "kernel" | "auto" (SSM scan)
     # kept for the reference's signature; it means nothing without a
-    # backward pass and is ignored until training lands (Queue 1 item 14)
+    # backward pass and is ignored until training lands (Queue 1 item 6)
     remat: bool = True
     cast_params_once: bool = False  # one compute-dtype weight copy per call
 
@@ -144,16 +165,71 @@ class Mamba1Mixer(nn.Module):
         self.out_proj = _param((din, d), dtype, device)
 
 
+class Mamba2Mixer(nn.Module):
+    """One Mamba-2 (SSD, groups = 1) mixer's weights, under the
+    reference's names: ``in_proj`` gives z, x·B·C and dt (2·d_inner + 2N
+    + H columns), the conv runs over x·B·C, and A_log, D and dt_bias are
+    one scalar per head."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        s = cfg.ssm
+        din, d, n = cfg.d_inner, cfg.d_model, s.d_state
+        nh = din // s.headdim
+        conv_dim = din + 2 * n
+        self.in_proj = _param((d, 2 * din + 2 * n + nh), dtype, device)
+        self.conv_w = _param((conv_dim, s.d_conv), dtype, device)
+        self.conv_b = _param((conv_dim,), dtype, device)
+        self.A_log = _param((nh,), dtype, device)
+        self.D = _param((nh,), dtype, device)
+        self.dt_bias = _param((nh,), dtype, device)
+        self.norm = _param((din,), dtype, device)
+        self.out_proj = _param((din, d), dtype, device)
+
+
 class MambaLayer(nn.Module):
+    """A Mamba layer: its norm and its mixer (Mamba-1 for the ``ssm``
+    family, Mamba-2 for the ``hybrid`` one)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln = _param((cfg.d_model,), dtype, device)
-        self.mixer = Mamba1Mixer(cfg, dtype, device)
+        mixer = Mamba2Mixer if cfg.family == "hybrid" else Mamba1Mixer
+        self.mixer = mixer(cfg, dtype, device)
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's shared transformer block, held once and applied after
+    every ``period``-th layer: ``ln1``, attention at
+    :func:`shared_config`'s widths, ``ln2`` and a gated MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ln1 = _param((cfg.d_model,), dtype, device)
+        self.attn = Attention(shared_config(cfg), dtype, device)
+        self.ln2 = _param((cfg.d_model,), dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def _tree(module: nn.Module, dtype: Optional[torch.dtype]
+          ) -> Dict[str, Any]:
+    """``module``'s weights as the reference's tree, one level of children
+    deep; with ``dtype``, float32 leaves are cast copies."""
+    def leaf(t):
+        return t.to(dtype) if dtype is not None and \
+            t.dtype == torch.float32 else t
+
+    out: Dict[str, Any] = {n: leaf(t) for n, t in
+                           module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = {n: leaf(t) for n, t in child.named_parameters()}
+    return out
 
 
 class Transformer(nn.Module):
-    """A decoder-only model at ``cfg``'s widths: a dense transformer, or a
-    stack of Mamba-1 layers for the ``ssm`` family."""
+    """A decoder-only model at ``cfg``'s widths: a dense transformer, a
+    stack of Mamba-1 layers for the ``ssm`` family, or a stack of Mamba-2
+    layers with one shared attention block for the ``hybrid`` family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -164,9 +240,12 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_size), dtype,
                                   device)
-        layer = MambaLayer if cfg.family == "ssm" else DecoderLayer
+        layer = (MambaLayer if cfg.family in ("ssm", "hybrid")
+                 else DecoderLayer)
         self.layers = nn.ModuleList(
             layer(cfg, dtype, device) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            self.shared_block = SharedBlock(cfg, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -177,17 +256,14 @@ class Transformer(nn.Module):
         """Layer ``i``'s weights as the reference's tree (``{"ln1", "ln2",
         "attn": {...}, "mlp": {...}}``, or ``{"ln", "mixer": {...}}``);
         with ``dtype``, float32 leaves are cast copies."""
-        layer = self.layers[i]
+        return _tree(self.layers[i], dtype)
 
-        def leaf(t):
-            return t.to(dtype) if dtype is not None and \
-                t.dtype == torch.float32 else t
-
-        out: Dict[str, Any] = {n: leaf(t) for n, t in
-                               layer.named_parameters(recurse=False)}
-        for name, child in layer.named_children():
-            out[name] = {n: leaf(t) for n, t in child.named_parameters()}
-        return out
+    def shared_params(self, dtype: Optional[torch.dtype] = None
+                      ) -> Dict[str, Any]:
+        """The hybrid's shared block as the reference's tree (``{"ln1",
+        "ln2", "attn": {...}, "mlp": {...}}``); with ``dtype``, float32
+        leaves are cast copies."""
+        return _tree(self.shared_block, dtype)
 
 
 def _init_mamba1_(mixer: Mamba1Mixer, g: torch.Generator) -> None:
@@ -205,6 +281,32 @@ def _init_mamba1_(mixer: Mamba1Mixer, g: torch.Generator) -> None:
         1, n + 1, dtype=torch.float32, device=mixer.A_log.device)))
     mixer.D.fill_(1.0)
     dense_init_(mixer.out_proj, g)
+
+
+def _init_mamba2_(mixer: Mamba2Mixer, g: torch.Generator) -> None:
+    """The reference's ``_mamba2_params`` values: ``in_proj`` and
+    ``out_proj`` drawn on their fan-in axes, ``conv_w`` on its last,
+    ``A_log`` zeros (A = -1 on every head), ``D`` ones, ``dt_bias`` -4.6,
+    ``norm`` ones, ``conv_b`` zeros."""
+    dense_init_(mixer.in_proj, g)
+    dense_init_(mixer.conv_w, g, in_axis=-1)
+    mixer.conv_b.zero_()
+    mixer.A_log.zero_()
+    mixer.D.fill_(1.0)
+    mixer.dt_bias.fill_(-4.6)
+    mixer.norm.fill_(1.0)
+    dense_init_(mixer.out_proj, g)
+
+
+def _init_attention_mlp_(attn_mod: Attention, mlp: MLP, qkv_bias: bool,
+                         g: torch.Generator) -> None:
+    for name in ("wq", "wk", "wv", "wo"):
+        dense_init_(getattr(attn_mod, name), g)
+    if qkv_bias:
+        for name in ("bq", "bk", "bv"):
+            getattr(attn_mod, name).zero_()
+    for name in ("wi", "wg", "wo"):
+        dense_init_(getattr(mlp, name), g)
 
 
 def init_params(cfg: ModelConfig, *,
@@ -231,16 +333,18 @@ def init_params(cfg: ModelConfig, *,
             if cfg.family == "ssm":
                 layer.ln.fill_(1.0)
                 _init_mamba1_(layer.mixer, g)
-                continue
-            layer.ln1.fill_(1.0)
-            layer.ln2.fill_(1.0)
-            for name in ("wq", "wk", "wv", "wo"):
-                dense_init_(getattr(layer.attn, name), g)
-            if cfg.qkv_bias:
-                for name in ("bq", "bk", "bv"):
-                    getattr(layer.attn, name).zero_()
-            for name in ("wi", "wg", "wo"):
-                dense_init_(getattr(layer.mlp, name), g)
+            elif cfg.family == "hybrid":
+                layer.ln.fill_(1.0)
+                _init_mamba2_(layer.mixer, g)
+            else:
+                layer.ln1.fill_(1.0)
+                layer.ln2.fill_(1.0)
+                _init_attention_mlp_(layer.attn, layer.mlp, cfg.qkv_bias, g)
+        if cfg.family == "hybrid":
+            sb = model.shared_block
+            sb.ln1.fill_(1.0)
+            sb.ln2.fill_(1.0)
+            _init_attention_mlp_(sb.attn, sb.mlp, False, g)
     return model
 
 
@@ -300,6 +404,34 @@ def _mlp(h, lp, cfg: ModelConfig):
                      cfg.act)
 
 
+def _shared_weights(model: Transformer, cfg: ModelConfig,
+                    call: CallConfig) -> Dict[str, Any]:
+    """The shared block's weights: as they are (each use casts them, as
+    the reference's programs do), or under ``cast_params_once`` one
+    compute-dtype copy for the whole call (the same values)."""
+    return model.shared_params(
+        _dtype(cfg.compute_dtype) if call.cast_params_once else None)
+
+
+def _applies_shared(cfg: ModelConfig, idx: int) -> bool:
+    """Whether the shared block runs after layer ``idx`` (the reference's
+    ``lax.cond((idx + 1) % period == 0)``, on the static index)."""
+    return (idx + 1) % cfg.hybrid.period == 0
+
+
+def shared_attn_block(x: torch.Tensor, sb: Mapping[str, Any],
+                      cfg: ModelConfig, positions: torch.Tensor,
+                      call: CallConfig = CallConfig()) -> torch.Tensor:
+    """Zamba2's shared transformer block on the full sequence (the
+    reference's ``_shared_attn_block``; ``sb`` from
+    :meth:`Transformer.shared_params`)."""
+    h = rms_norm(x, sb["ln1"], cfg.norm_eps)
+    x = x + attn.gqa_attention(h, sb["attn"], shared_config(cfg), positions,
+                               impl=call.attn_impl, chunk=call.attn_chunk)
+    h = rms_norm(x, sb["ln2"], cfg.norm_eps)
+    return x + _mlp(h, sb, cfg)
+
+
 def forward(model: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
             call: CallConfig = CallConfig()
@@ -307,6 +439,16 @@ def forward(model: Transformer, cfg: ModelConfig,
     """Full forward pass -> (logits f32, aux_loss)."""
     require_ported(cfg)
     x, positions, prefix_len = embed_inputs(model, cfg, batch)
+    if cfg.family == "hybrid":
+        sb = _shared_weights(model, cfg, call)
+        for idx, lp in enumerate(_layer_list(model, cfg, call)):
+            h = rms_norm(x, lp["ln"], cfg.norm_eps)
+            x = x + ssm_lib.mamba2_block(h, lp["mixer"], cfg,
+                                         impl=call.ssm_impl)
+            if _applies_shared(cfg, idx):
+                x = shared_attn_block(x, sb, cfg, positions, call)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return unembed(model, cfg, x), aux
     for lp in _layer_list(model, cfg, call):
         if cfg.family == "ssm":
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -330,9 +472,25 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     a decode step reads it on the device, never on the host).  For the
     ``ssm`` family the state cache: ``conv`` (L, B, K-1, d_inner), the
     last K-1 pre-conv inputs, ``h`` (L, B, d_inner, N) float32 and
-    ``pos``."""
+    ``pos``.  For the ``hybrid`` family ``conv`` (L, B, K-1, d_inner + 2N),
+    ``h`` (L, B, H, P, N) float32, the shared block's ``k``/``v`` (L //
+    period, B, max_len, Hkv·dh), one slot per application, and ``pos``."""
     require_ported(cfg)
     dt = _dtype(dtype_str or cfg.compute_dtype)
+    if cfg.family == "hybrid":
+        s, scfg = cfg.ssm, shared_config(cfg)
+        nh = cfg.d_inner // s.headdim
+        apps = cfg.n_layers // cfg.hybrid.period
+        kv = (apps, batch_size, max_len, scfg.n_kv_heads * scfg.head_dim)
+        return {"conv": torch.zeros((cfg.n_layers, batch_size, s.d_conv - 1,
+                                     cfg.d_inner + 2 * s.d_state), dtype=dt,
+                                    device=device),
+                "h": torch.zeros((cfg.n_layers, batch_size, nh, s.headdim,
+                                  s.d_state), dtype=torch.float32,
+                                 device=device),
+                "k": torch.zeros(kv, dtype=dt, device=device),
+                "v": torch.zeros(kv, dtype=dt, device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family == "ssm":
         s = cfg.ssm
         return {"conv": torch.zeros((cfg.n_layers, batch_size, s.d_conv - 1,
@@ -374,10 +532,14 @@ def prefill(model: Transformer, cfg: ModelConfig,
     cache).  With ``cache`` (an :func:`init_cache` of this batch and
     ``max_len``) the prompt is written into it, in place; otherwise into a
     new one.  The ``ssm`` family's cache holds no positions, so
-    ``max_len`` does not bound its prompt (as in the reference)."""
+    ``max_len`` does not bound its prompt (as in the reference); the
+    ``hybrid`` family's shared block keeps K/V, so it does."""
     require_ported(cfg)
     x, positions, prefix_len = embed_inputs(model, cfg, batch)
     b, s = x.shape[0], x.shape[1]
+    if cfg.family == "hybrid":
+        return _prefill_hybrid(model, cfg, x, positions, max_len, call,
+                               cache)
     if cfg.family == "ssm":
         cache = _into(cache, cfg, b, max_len, x.device)
         for i, lp in enumerate(_layer_list(model, cfg, call)):
@@ -404,6 +566,42 @@ def prefill(model: Transformer, cfg: ModelConfig,
         cache["v"][i, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
         x = x + _mlp(h, lp, cfg)
+    cache["pos"].fill_(s)
+    return unembed(model, cfg, x[:, -1:]), cache
+
+
+def _prefill_hybrid(model: Transformer, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, max_len: int, call: CallConfig,
+                    cache: Optional[Cache]) -> Tuple[torch.Tensor, Cache]:
+    """The hybrid's prefill: every Mamba-2 layer on the full prompt, its
+    conv tail and state into the cache; after every ``period``-th layer the
+    shared block, its K/V written into slot ``idx // period``."""
+    b, s = x.shape[0], x.shape[1]
+    if s > max_len:
+        raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
+    dt = x.dtype
+    scfg = shared_config(cfg)
+    cache = _into(cache, cfg, b, max_len, x.device)
+    sb = _shared_weights(model, cfg, call)
+    for idx, lp in enumerate(_layer_list(model, cfg, call)):
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        y, (conv_tail, h_last) = ssm_lib.mamba2_block(
+            h, lp["mixer"], cfg, return_state=True, impl=call.ssm_impl)
+        x = x + y
+        cache["conv"][idx] = conv_tail.to(cache["conv"].dtype)
+        cache["h"][idx] = h_last
+        if not _applies_shared(cfg, idx):
+            continue
+        app = idx // cfg.hybrid.period
+        hh = rms_norm(x, sb["ln1"], cfg.norm_eps)
+        q, k, v = attn.gqa_project(hh, sb["attn"], scfg, positions)
+        o = attn.multihead_attention(q, k, v, impl=call.attn_impl,
+                                     chunk=call.attn_chunk)
+        x = x + torch.matmul(attn._merge_heads(o), sb["attn"]["wo"].to(dt))
+        cache["k"][app, :, :s] = attn._merge_heads(k).to(cache["k"].dtype)
+        cache["v"][app, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)
+        hh = rms_norm(x, sb["ln2"], cfg.norm_eps)
+        x = x + _mlp(hh, sb, cfg)
     cache["pos"].fill_(s)
     return unembed(model, cfg, x[:, -1:]), cache
 
@@ -443,6 +641,29 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Cache,
             cache["conv"][i] = conv
             cache["h"][i] = h
         new_cache = {"conv": cache["conv"], "h": cache["h"], "pos": pos + 1}
+        return unembed(model, cfg, x), new_cache
+    if cfg.family == "hybrid":
+        scfg = shared_config(cfg)
+        sb = model.shared_params()
+        for i in range(cfg.n_layers):
+            lp = model.layer_params(i)
+            hin = rms_norm(x, lp["ln"], cfg.norm_eps)
+            y, conv, h = ssm_lib.mamba2_decode(
+                hin, lp["mixer"], cfg, cache["conv"][i], cache["h"][i])
+            x = x + y
+            cache["conv"][i] = conv
+            cache["h"][i] = h
+            if not _applies_shared(cfg, i):
+                continue
+            app = i // cfg.hybrid.period
+            hin = rms_norm(x, sb["ln1"], cfg.norm_eps)
+            o, _, _ = attn.gqa_decode(hin, sb["attn"], scfg, cache["k"][app],
+                                      cache["v"][app], pos)
+            x = x + o
+            hin = rms_norm(x, sb["ln2"], cfg.norm_eps)
+            x = x + _mlp(hin, sb, cfg)
+        new_cache = {name: cache[name] for name in ("conv", "h", "k", "v")}
+        new_cache["pos"] = pos + 1
         return unembed(model, cfg, x), new_cache
     for i in range(cfg.n_layers):
         lp = model.layer_params(i)

@@ -1,5 +1,5 @@
-"""State-space blocks: Mamba-1 (S6 selective scan) — twin of the Mamba-1
-half of ``repro.models.ssm``.
+"""State-space blocks: Mamba-1 (S6 selective scan) and Mamba-2 (SSD) —
+twin of ``repro.models.ssm``.
 
 The recurrence h_t = a_t ⊙ h_{t-1} + b_t runs one chunk of ``cfg.ssm.chunk``
 steps at a time, as the reference's ``lax.scan`` over chunks does: the
@@ -21,10 +21,13 @@ state after the last real step, which is what the reference's zero-dt
 padding gives.  Decode is the single-step recurrence in plain torch, as the
 reference keeps it in jnp.
 
-Mamba-2 (SSD), the hybrid family's block, comes with ROADMAP.md Queue 1
-item 12 (hybrid).  Parameters ``p`` are one layer's mixer weights as a
-mapping, the reference's tree; products cast each weight to the
-activations' dtype at use.
+Mamba-2 (SSD, groups = 1), the hybrid family's block, goes through the
+same scan: its decay exp(dt·A) is one scalar per (token, head), expanded
+over the head's (P, N) states so that the scan sees D = H·P channels of N
+states each, one decay per element as the kernel takes it; its input is
+(dt·x)⊗B and C_t is shared by every head.  Parameters ``p`` are one
+layer's mixer weights as a mapping, the reference's tree; products cast
+each weight to the activations' dtype at use.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import gated_rms_norm
 
 IMPLS = ("plain", "kernel", "auto")
 Params = Mapping[str, torch.Tensor]
@@ -195,16 +199,113 @@ def mamba1_decode(x: torch.Tensor, p: Params, cfg: ModelConfig,
     return (torch.matmul(y, p["out_proj"].to(x.dtype)), conv_state, h)
 
 
-# --- Mamba-2 (SSD): the hybrid family's block --------------------------------------
+# --- Mamba-2 (SSD, groups = 1): the hybrid family's block ---------------------------
 
 
-def mamba2_block(*args, **kwargs):
-    raise NotImplementedError(
-        "mamba2_block (Mamba-2 SSD) comes with the hybrid family "
-        "(ROADMAP.md Queue 1 item 12)")
+def _mamba2_split(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d_inner, heads H, head dim P, d_state N)."""
+    s2 = cfg.ssm
+    din = cfg.d_inner
+    return din, din // s2.headdim, s2.headdim, s2.d_state
 
 
-def mamba2_decode(*args, **kwargs):
-    raise NotImplementedError(
-        "mamba2_decode (Mamba-2 SSD) comes with the hybrid family "
-        "(ROADMAP.md Queue 1 item 12)")
+def _mamba2_dt(dt_raw: torch.Tensor, p: Params):
+    """The raw dt -> (dt = softplus(dt_raw + dt_bias) f32 (B, S, H), A =
+    -exp(A_log) f32 (H,))."""
+    dt = F.softplus(dt_raw.to(_F32) + p["dt_bias"].to(_F32))
+    return dt, -torch.exp(p["A_log"].to(_F32))
+
+
+def _mamba2_gates(xbc: torch.Tensor, dt_raw: torch.Tensor, p: Params,
+                  cfg: ModelConfig):
+    """Post-conv xbc and the raw dt -> (a (B, S, H, 1, 1), b (B, S, H, P,
+    N), x by heads (B, S, H, P), C_t (B, S, N)) of the recurrence."""
+    din, nh, hp, n = _mamba2_split(cfg)
+    x_c, b_t, c_t = torch.split(xbc, [din, n, n], dim=-1)
+    dt, a_vec = _mamba2_dt(dt_raw, p)
+    a = torch.exp(dt * a_vec)                                  # (B,S,H)
+    xh = x_c.reshape(x_c.shape[:-1] + (nh, hp))
+    b = (dt[..., None] * xh.to(_F32))[..., None] \
+        * b_t.to(_F32)[:, :, None, None, :]                    # (B,S,H,P,N)
+    return a[..., None, None], b, xh, c_t
+
+
+def expanded_decay(dtc: torch.Tensor, a_vec: torch.Tensor, hp: int,
+                   n: int) -> torch.Tensor:
+    """A chunk's decay for the scan: exp(dt·A), one scalar per (token,
+    head) of ``dtc`` (B, chunk, H) f32, repeated over the head's (P, N)
+    states into a contiguous (B, chunk, H·P, N) tensor — one decay per
+    element, as the scan kernel (and the TPU kernel it replaces) takes
+    it."""
+    bsz, cl, nh = dtc.shape
+    return (dtc * a_vec).exp_()[..., None, None].expand(
+        bsz, cl, nh, hp, n).reshape(bsz, cl, nh * hp, n).contiguous()
+
+
+def mamba2_block(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                 return_state: bool = False, impl: str = "auto"):
+    """(B, S, D) -> (B, S, D); full-sequence Mamba-2 SSD.  With
+    ``return_state``, also returns (conv_tail, h_last) for priming a
+    decode cache: the last K-1 pre-conv rows (B, K-1, d_inner + 2N) and
+    the state (B, H, P, N) f32.
+
+    The gates exist one chunk at a time, as in :func:`mamba1_block`: a
+    chunk's decay is :func:`expanded_decay`'s (B, chunk, H·P, N) tensor and
+    its input (dt·x)⊗B is reshaped to the same, so each chunk is one scan
+    of D = H·P channels through ``impl``, the state carried as (B, H·P,
+    N)."""
+    s2 = cfg.ssm
+    din, nh, hp, n = _mamba2_split(cfg)
+    bsz, s = x.shape[0], x.shape[1]
+    proj = torch.matmul(x, p["in_proj"].to(x.dtype))
+    z, xbc_raw, dt_raw = torch.split(proj, [din, din + 2 * n, nh], dim=-1)
+    xbc = F.silu(causal_conv(xbc_raw, p["conv_w"].to(x.dtype),
+                             p["conv_b"].to(x.dtype)))
+    x_c, b_t, c_t = torch.split(xbc, [din, n, n], dim=-1)
+    dt, a_vec = _mamba2_dt(dt_raw, p)
+    xh32 = x_c.reshape(bsz, s, nh, hp).to(_F32)
+    b32, c32 = b_t.to(_F32), c_t.to(_F32)
+
+    h = torch.zeros((bsz, nh * hp, n), dtype=_F32, device=x.device)
+    ys = []
+    for start in range(0, s, s2.chunk):
+        sl = slice(start, start + s2.chunk)
+        dtc = dt[:, sl]
+        a = expanded_decay(dtc, a_vec, hp, n)
+        b = ((dtc[..., None] * xh32[:, sl])[..., None]
+             * b32[:, sl, None, None, :]).reshape(bsz, dtc.shape[1],
+                                                  nh * hp, n)
+        y_c, h = _scan(a, b, c32[:, sl].contiguous(), h, impl)
+        ys.append(y_c)
+        del a, b
+    y = (torch.cat(ys, dim=1) if ys
+         else xh32.new_zeros((bsz, 0, nh * hp))).reshape(bsz, s, nh, hp)
+    y = y + p["D"].to(_F32)[:, None] * xh32
+    y = y.reshape(bsz, s, din).to(x.dtype)
+    y = gated_rms_norm(y, z, p["norm"], cfg.norm_eps)
+    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    if return_state:
+        return out, (_conv_tail(xbc_raw, s2.d_conv),
+                     h.reshape(bsz, nh, hp, n))
+    return out
+
+
+def mamba2_decode(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                  conv_state: torch.Tensor, h: torch.Tensor):
+    """x: (B, 1, D); conv_state (B, K-1, d_inner + 2N); h (B, H, P, N) f32
+    -> (y, conv_state, h)."""
+    din, nh, hp, n = _mamba2_split(cfg)
+    proj = torch.matmul(x, p["in_proj"].to(x.dtype))
+    z, xbc, dt_raw = torch.split(proj[:, 0], [din, din + 2 * n, nh],
+                                 dim=-1)
+    xbc_flat, conv_state = conv_decode(xbc, conv_state,
+                                       p["conv_w"].to(x.dtype),
+                                       p["conv_b"].to(x.dtype))
+    xbc1 = F.silu(xbc_flat)[:, None]
+    a, b, xh, c_t = _mamba2_gates(xbc1, dt_raw[:, None], p, cfg)
+    h = a[:, 0] * h + b[:, 0]                                   # (B,H,P,N)
+    y = torch.matmul(h, c_t[:, 0].to(_F32)[:, None, :, None])[..., 0]
+    y = y + p["D"].to(_F32)[:, None] * xh[:, 0].to(_F32)
+    y = y.reshape(x.shape[0], 1, din).to(x.dtype)
+    y = gated_rms_norm(y, z[:, None], p["norm"], cfg.norm_eps)
+    return torch.matmul(y, p["out_proj"].to(x.dtype)), conv_state, h

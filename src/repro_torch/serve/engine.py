@@ -44,7 +44,9 @@ the done-mask and refill from the queue, and one drain of the tokens at the
 end.  As in the reference it needs the plain attention family: it raises
 :class:`NotImplementedError` for the ``ssm`` and ``hybrid`` families, MLA
 and the modality frontends.  ``generate`` serves the ``ssm`` family
-(falcon-mamba) with its state cache (``conv``, ``h``, ``pos``).
+(falcon-mamba) with its state cache (``conv``, ``h``, ``pos``) and the
+``hybrid`` family (zamba2) with its state cache and the shared block's
+K/V, one slot per application (``conv``, ``h``, ``k``, ``v``, ``pos``).
 
 Sampling: temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed`` on each call (Gumbel-max over ``logits /
@@ -319,7 +321,8 @@ class ServeEngine:
         output sliced back.  Batch rows are computed independently, so
         padding does not change the real rows' tokens.  (The reference's
         ``extra_inputs`` feed the modality frontends, which come with
-        ROADMAP.md Queue 1 item 12.)
+        ROADMAP.md Queue 1 item 5; the port builds the dense, ssm and
+        hybrid families.)
         """
         model = self._model()
         prompts = np.asarray(prompts)

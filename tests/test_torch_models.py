@@ -251,7 +251,7 @@ def test_yi_9b_at_published_width():
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
                                   "deepseek-v2-lite-16b", "paligemma-3b",
-                                  "zamba2-2.7b", "musicgen-large"])
+                                  "musicgen-large"])
 def test_other_families_raise_naming_the_roadmap(arch):
     cfg = T.get(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
@@ -261,6 +261,7 @@ def test_other_families_raise_naming_the_roadmap(arch):
 
 
 def test_registry_and_configs_are_the_reference_data():
+    import importlib
     from repro.models import registry as r_registry
     from repro_torch.configs import smollm_360m, yi_9b
     assert sorted(T.ARCHS) == sorted(r_registry.ARCHS)
@@ -269,6 +270,25 @@ def test_registry_and_configs_are_the_reference_data():
             r_registry.ARCHS[name])
     assert yi_9b.CONFIG is T.get("yi-9b")
     assert smollm_360m.REDUCED == T.reduced(T.get("smollm-360m"))
+    # the config modules of the dense and hybrid families, each the twin
+    # of the reference's (its NAME, CONFIG and REDUCED)
+    for mod in ("phi3_medium_14b", "qwen15_110b", "zamba2_27b"):
+        ours = importlib.import_module(f"repro_torch.configs.{mod}")
+        theirs = importlib.import_module(f"repro.configs.{mod}")
+        assert ours.NAME == theirs.NAME and ours.CONFIG is T.get(ours.NAME)
+        for field in ("CONFIG", "REDUCED"):
+            assert dataclasses.asdict(getattr(ours, field)) == \
+                dataclasses.asdict(getattr(theirs, field))
+    # the paper's platform: the port's own jobs and machine constants
+    from repro.configs import paper_occamy as r_occamy
+    from repro_torch.configs import paper_occamy
+    assert paper_occamy.NAME == r_occamy.NAME == "occamy"
+    assert dataclasses.asdict(paper_occamy.CONFIG) == dataclasses.asdict(
+        r_occamy.CONFIG)
+    assert (paper_occamy.CONFIG.num_clusters,
+            paper_occamy.CONFIG.num_cores) == (32, 289)
+    assert sorted(paper_occamy.PAPER_JOBS) == sorted(r_occamy.PAPER_JOBS)
+    assert paper_occamy.OccamyParams.__module__.startswith("repro_torch.")
     with pytest.raises(KeyError):
         T.get("no-such-arch")
 

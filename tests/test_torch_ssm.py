@@ -347,15 +347,6 @@ def test_short_prompt_conv_tail_is_zero_padded():
                                atol=1e-4)
 
 
-def test_mamba2_comes_with_the_hybrid_family():
-    for fn in (t_ssm.mamba2_block, t_ssm.mamba2_decode):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.init_params(T.reduced(T.get("zamba2-2.7b")),
-                      generator=torch.Generator())
-
-
 # -- the model ---------------------------------------------------------------------
 
 
