@@ -112,10 +112,31 @@ no JAX and nothing of the reference package.
    and scan phases also time the two kernels at this model's shapes (q
    (4, 32, 512, 80) bf16; a, b (4, 256, 5120, 64) f32) and the expanded
    decay of one of its chunks.
-9. The ``kernels:`` line with the counts (the flash kernel's from Yi-9B's
-   and zamba2's runs, the scan's from falcon-mamba's and zamba2's), one
-   JSON line of the kernels' numbers, the card line, and last ``{"ok":
-   true, "device": {...}}``.
+9. Serving the MoE family (``moe_serving_phase``): deepseek-v2-lite-16b
+   at its published width and depth, nothing cut (27 layers, d 2048; MLA
+   with 16 heads, kv_lora 512, nope 128, rope 64, v 128; 64 routed
+   experts top-6 of 1408 and 2 shared; 16,210,324,992 float32 weights
+   from a seeded generator on the card, bf16 compute, the earlier models
+   released and the free memory printed first; ``cast_params_once`` stays
+   off, since its bf16 copy would add 32.4 GB to 64.84).  The same prompts
+   and modes as falcon-mamba, routed without drops; ``generate_many``
+   raises (MLA), as the reference's does; no flash or scan launch in the
+   whole run ("auto" resolves to the plain attention for MLA's 192/128
+   head dims).  Its decode step against the full-sequence path in float32
+   compute (relative L2 within 1e-3; the bf16 figure printed), prefill
+   and decode times, peak memory, the top device ops of a prefill and a
+   captured step, then ``graphs_phase``.  Then llama4-scout-17b-a16e at
+   its reduced size (MoE with GQA; the full model is 431 GB of f32):
+   ``generate`` in every mode and ``generate_many`` (the MoE ragged step),
+   one flash launch a layer a prefill, its prefill logits with the flash
+   kernel against the plain attention in bf16 and f32 compute (q (4, 4,
+   512, 32) against k/v (4, 2, 512, 32)), and its ``graphs_phase``.  (The
+   session phase's retry runs at n = 8 and n = 32: the bisection probe is
+   sized by ``faults.probe_size``.)
+10. The ``kernels:`` line with the counts (the flash kernel's from
+   Yi-9B's, zamba2's and the reduced llama4's runs, the scan's from
+   falcon-mamba's and zamba2's), one JSON line of the kernels' numbers,
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
 measured is also written to ``DIR/chip_smoke.json`` (default
@@ -137,6 +158,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+#: the device ops a profile lists, by time
+TOP_OPS = 10
 #: peak operations per second by element type (H100 SXM data sheet; the
 #: float64 figure is the tensor-core rate, the float32 one outside them)
 PEAK_OPS_PER_S = {"float64": 67e12, "float32": 67e12, "bfloat16": 989e12}
@@ -225,6 +248,17 @@ HYBRID_FLASH_SHAPE = ((4, 32, 512, 80), (4, 32, 512, 80))
 #: the scan kernel against ref.ssm_scan: tests/test_kernels.py:139 in f32
 #: (the two sum in another order, and the kernel fuses each step's
 #: multiply-add); in bf16 both round one f32 result to bf16 once
+#: the MoE family: deepseek-v2-lite-16b (MoE with MLA attention) at its
+#: published width and depth, nothing cut (64.84 GB of f32 weights), then
+#: llama4-scout-17b-a16e (MoE with GQA) at its reduced size only: the full
+#: model's 107.8 G parameters are 431 GB of f32, more than one card holds
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
+MOE_GQA_ARCH = "llama4-scout-17b-a16e"
+#: the MLA decode step's logits against the full-sequence path's, float32
+#: compute, as a relative L2 distance (the bar of the same comparison in
+#: tests/test_models_smoke.py:70-72)
+MLA_DECODE_TOL = 1e-3
 SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 #: the lint phase: alternating passes of each original and fixed submission
@@ -438,7 +472,8 @@ def flash_phase(check, report, time_ms):
 
 def device_busy(fn, reps):
     """Device time over host wall time of ``reps`` calls of ``fn`` in a
-    ``torch.profiler`` trace (after one warm-up call)."""
+    ``torch.profiler`` trace (after one warm-up call), with the
+    ``TOP_OPS`` device ops by time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -465,7 +500,7 @@ def device_busy(fn, reps):
     return {"wall_us": wall_us, "device_us": dev_us,
             "busy_share": dev_us / wall_us,
             "launches": sum(r[2] for r in rows) // reps,
-            "top": [(k, us / reps, c // reps) for us, k, c in rows[:4]]}
+            "top": [(k, us / reps, c // reps) for us, k, c in rows[:TOP_OPS]]}
 
 
 def serving_phase(check, report):
@@ -880,18 +915,264 @@ def hybrid_serving_phase(check, report):
                f"d_ff {cfg.d_ff}; vocab {cfg.vocab_size}"))
 
 
+def moe_serving_phase(check, report):
+    """The MoE family on the card.  deepseek-v2-lite-16b at its published
+    width and depth through ``ServeEngine`` (``serve_state_model``): MLA
+    attention (q/k of 192, v of 128, which the flash kernel does not take,
+    so "auto" resolves to the plain attention) and 64 routed experts top-6
+    with 2 shared, routed without drops; no kernel of the port is on its
+    path, and the flash and scan counts must not move over the whole run.
+    Then its MLA decode step against the full-sequence path
+    (``mla_decode_check``) and its ``graphs_phase``.  Then the reduced
+    llama4-scout (``moe_gqa_phase``).  Returns the llama4 run's launch
+    counts (the flash kernel's, one a layer a prefill)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import get
+
+    cfg = get(MOE_ARCH)
+    m, e = cfg.mla, cfg.moe
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.vocab_size, e.n_experts, e.top_k, e.n_shared, e.d_ff_expert,
+           m.kv_lora_rank, m.qk_nope_head_dim, m.qk_rope_head_dim,
+           m.v_head_dim)
+          == ("moe", 27, 2048, 16, 102400, 64, 6, 2, 1408, 512, 128, 64,
+              128),
+          f"{cfg.name} is not at its published width: {cfg}")
+    served = serve_state_model(
+        check, report, cfg, MOE_STATIC, key="moe_serving",
+        n_params=16_210_324_992,
+        per_prefill={"flash_attention": 0, "ssm_scan": 0},
+        shape=(f"{cfg.n_layers} layers, d {cfg.d_model}; MLA: {cfg.n_heads} "
+               f"heads, kv_lora {m.kv_lora_rank}, nope {m.qk_nope_head_dim}, "
+               f"rope {m.qk_rope_head_dim}, v {m.v_head_dim}; MoE: "
+               f"{e.n_experts} experts top-{e.top_k} of {e.d_ff_expert}, "
+               f"{e.n_shared} shared; vocab {cfg.vocab_size}; "
+               f"cast_params_once off"))
+    mla_decode_check(check, report, served)
+    # a decode step with the per-use casts: every f32 weight read once,
+    # each matrix written and read again in bf16 (its f32 bytes), the
+    # embedding's unread rows and the f32 router (no copy) aside
+    model = served["model"]
+    cast = sum(p.numel() * 2 * 2 for n, p in model.named_parameters()
+               if p.ndim >= 2 and n != "embed" and not n.endswith("router"))
+    unread = (cfg.vocab_size - MOE_STATIC["batch"]) * cfg.d_model * 4
+    with_casts = served["param_bytes"] - unread + cast
+    report["moe_serving"]["step_bytes_with_casts"] = with_casts
+    print(f"  a decode step with the per-use casts moves {with_casts} B: "
+          f"{with_casts / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s",
+          flush=True)
+    del model
+    graphs_phase(check, report, served)
+    torch.cuda.synchronize()
+    # counted from the serving run's reset through the graphs phase
+    moved = {k: build.launch_counts()[k]
+             for k in ("flash_attention", "ssm_scan")}
+    check(moved == {"flash_attention": 0, "ssm_scan": 0},
+          f"{cfg.name} launched model kernels: {moved} ('auto' must "
+          f"resolve to the plain attention for MLA)")
+    report["moe_serving"]["kernel_launches_whole_phase"] = moved
+    print(f"  {cfg.name}: model-kernel launches over the whole phase "
+          f"{moved}", flush=True)
+    del served
+    torch.cuda.empty_cache()
+    return moe_gqa_phase(check, report)
+
+
+def mla_decode_check(check, report, served):
+    """deepseek's decode step after a prefill of the prompts against the
+    prefill's last-position logits over the prompts plus that token, at
+    full width and depth: in float32 compute (the same f32 weights, no
+    copy) within ``MLA_DECODE_TOL`` relative L2; the bf16 figure is
+    printed beside it, not a gate.  Both route without drops.  Beside
+    each figure, the (layer, token) pairs whose top-k expert sets differ
+    between the two paths (the indices ``moe.route`` returns, recorded
+    around the decode step and the full-sequence prefill)."""
+    import torch
+    from repro_torch.models import CallConfig, decode_step, prefill
+    from repro_torch.models import moe as moe_lib
+
+    route = moe_lib.route
+
+    def chosen(fn):
+        """``fn()`` and the expert indices of each ``route`` call in it."""
+        got = []
+
+        def recorded(probs, k):
+            vals, idx = route(probs, k)
+            got.append(idx)
+            return vals, idx
+        moe_lib.route = recorded
+        try:
+            return fn(), got
+        finally:
+            moe_lib.route = route
+
+    dev = torch.device("cuda")
+    cfg, model = served["cfg"], served["model"]
+    toks = torch.as_tensor(served["prompts"]).to(dev)
+    nxt = torch.as_tensor(served["outs"]["step"][:, :1]).to(dev)
+    s = toks.shape[1]
+    call = CallConfig(moe_no_drop=True)
+    rows = {}
+    for tag in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=tag)
+        _, cache = prefill(model, c, {"tokens": toks}, s + 1, call)
+        dec, dec_idx = chosen(lambda: decode_step(model, c, cache, nxt)[0])
+        del cache
+        full, full_idx = chosen(lambda: prefill(
+            model, c, {"tokens": torch.cat([toks, nxt], dim=1)}, s + 1,
+            call)[0])
+        dec, full = dec.double(), full.double()
+        d = dec - full
+        b, k = nxt.shape[0], cfg.moe.top_k
+        check(len(dec_idx) == len(full_idx) > 0,
+              f"{cfg.name}: {len(dec_idx)} routings in the decode step, "
+              f"{len(full_idx)} in the full-sequence prefill")
+        flips = [int((dl.view(b, k).sort(-1).values
+                      != fl.view(b, s + 1, k)[:, -1].sort(-1).values)
+                     .any(-1).sum()) for dl, fl in zip(dec_idx, full_idx)]
+        rows[tag] = {"rel_l2": (d.norm() / full.norm()).item(),
+                     "max_abs_err": d.abs().max().item(),
+                     "max_abs_logit": full.abs().max().item(),
+                     "finite": bool(torch.isfinite(dec).all()),
+                     "routing_flips": sum(flips),
+                     "routings": len(flips) * b,
+                     "first_flip_layer": next(
+                         (i for i, f in enumerate(flips) if f), None)}
+        del dec, full, d, dec_idx, full_idx
+        torch.cuda.empty_cache()
+    r32 = rows["float32"]
+    check(r32["finite"] and r32["rel_l2"] <= MLA_DECODE_TOL,
+          f"{cfg.name}: the f32 MLA decode step is {r32} from the "
+          f"full-sequence path (bar: relative L2 {MLA_DECODE_TOL})")
+    report["moe_serving"]["mla_decode"] = rows
+    for tag, r in rows.items():
+        print(f"  MLA decode vs full sequence, {tag} compute: relative L2 "
+              f"{r['rel_l2']:.4g}, max_abs_err {r['max_abs_err']:.4g} (max "
+              f"|logit| {r['max_abs_logit']:.4g}); top-{cfg.moe.top_k} "
+              f"expert sets differ in {r['routing_flips']} of "
+              f"{r['routings']} (MoE layer, token) pairs, first at MoE "
+              f"layer {r['first_flip_layer']}"
+              + (f"; bar {MLA_DECODE_TOL}" if tag == "float32"
+                 else "; not a gate"), flush=True)
+
+
+def moe_gqa_phase(check, report):
+    """llama4-scout-17b-a16e at its reduced size (2 layers, d 128, 4/2
+    heads of 32, 4 experts top-1 and one shared) through ``ServeEngine``:
+    ``generate`` in every decode mode and ``generate_many`` (the MoE
+    branch of the ragged step) over the Yi-9B phase's request trace, each
+    prefill launching the flash kernel once a layer; the prefill logits
+    with the kernel against the plain attention (``prefill_vs_plain``,
+    GQA at head dim 32 over the 512-token prompts); then its
+    ``graphs_phase`` (captured tokens against eager, ``generate_many``
+    too).  Returns the launch counts of the counted run."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import continuous_trace
+    from repro_torch.models import get, init_params, reduced
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    dev = torch.device("cuda")
+    cfg = reduced(get(MOE_GQA_ARCH))
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.moe.n_experts, cfg.moe.top_k,
+           cfg.moe.n_shared) == ("moe", 2, 128, 4, 2, 32, 4, 1, 1),
+          f"{cfg.name}: {cfg}")
+    print(f"== serving: {cfg.name} (reduced: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared; {cfg.compute_dtype} "
+          f"compute)", flush=True)
+    model = init_params(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    param_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    st = MOE_STATIC
+    prompts = SyntheticStream(DataConfig(
+        vocab_size=cfg.vocab_size, batch_size=st["batch"],
+        seq_len=st["prompt_len"], seed=0), cfg).batch(0)["tokens"]
+    max_len = st["prompt_len"] + st["new_tokens"] + 1
+    mn = SERVE_MANY
+    reqs, arrivals, lens = continuous_trace(
+        mn["requests"], mn["lo"], mn["hi"], mn["new_tokens"],
+        mn["arrival_rate"], cfg.vocab_size, seed=0)
+
+    outs, wall = {}, {}
+    torch.cuda.synchronize()
+    build.reset_counts()
+    for mode in ("step", "chunk", "host"):
+        eng = ServeEngine(cfg, model, ServeConfig(
+            batch=st["batch"], max_len=max_len, decode_mode=mode,
+            decode_chunk=st["decode_chunk"]))
+        t0 = time.perf_counter()
+        outs[mode] = eng.generate(prompts, st["new_tokens"])
+        torch.cuda.synchronize()
+        wall[mode] = time.perf_counter() - t0
+    eng = ServeEngine(cfg, model, ServeConfig(batch=mn["batch"],
+                                              max_len=mn["max_len"]))
+    t0 = time.perf_counter()
+    many = eng.generate_many(reqs, arrival_steps=arrivals.tolist())
+    torch.cuda.synchronize()
+    many_s = time.perf_counter() - t0
+    many_stats = dict(eng.stats)
+    launches = build.launch_counts()
+    prefills = len(outs) + sum(1 for p, _ in reqs if p.size > 1)
+
+    want = cfg.n_layers * prefills
+    check(launches["flash_attention"] == want,
+          f"{cfg.name} launched flash_attention "
+          f"{launches['flash_attention']} times, not once a layer of each "
+          f"of {prefills} prefills ({want})")
+    for mode in ("chunk", "host"):
+        check(np.array_equal(outs[mode], outs["step"]),
+              f"{cfg.name}: {mode} mode emitted other greedy tokens than "
+              f"step mode")
+    check(all(o.shape == (mn["new_tokens"],) and o.min() >= 0
+              and o.max() < cfg.vocab_size for o in many)
+          and many_stats["requests_retired"] == mn["requests"],
+          f"{cfg.name}: continuous outputs {[o.shape for o in many]}, "
+          f"stats {many_stats}")
+    print(f"  generate step/chunk/host: identical greedy tokens; "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in wall.items())
+          + f"; generate_many: {mn['requests']} requests in {many_s:.3f} s, "
+          f"stats {many_stats}; flash launches {launches['flash_attention']}"
+          f" = {cfg.n_layers} a prefill x {prefills}", flush=True)
+    # the flash kernel at this prefill's GQA shapes against the plain
+    # attention, through the whole model
+    prefill_cmp = prefill_vs_plain(check, cfg, model,
+                                   torch.as_tensor(prompts).to(dev), max_len)
+    report["moe_gqa_serving"] = {
+        "arch": cfg.name, "wall_s": wall, "continuous_s": many_s,
+        "stats": many_stats, "launches": launches, "prefills": prefills,
+        "prefill_logits": prefill_cmp,
+        "tokens_row0": outs["step"][0].tolist()}
+    graphs_phase(check, report, {
+        "cfg": cfg, "model": model, "prompts": prompts, "outs": outs,
+        "static": st, "max_len": max_len, "param_bytes": param_bytes,
+        "many": (reqs, arrivals.tolist(), many)})
+    del model, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
                       shape):
-    """A model with a state cache (the ``ssm`` and ``hybrid`` families)
-    at its published width through ``ServeEngine`` on the card: random
-    f32 weights from a seeded generator, bf16 compute; ``generate`` in
-    every decode mode (identical greedy tokens), each prefill launching
-    every kernel of ``per_prefill`` that many times; ``generate_many``
-    raises, as the reference's does; the prefill logits with the kernels
-    against the plain versions in bf16 and f32 compute; prefill and decode
-    times, peak memory and busy shares.  Returns what the graphs phase
-    reuses: the launch counts of the serving run, the config, the model
-    (still on the card), the prompts and every mode's greedy tokens."""
+    """A model served through ``generate`` only (the ``ssm``, ``hybrid``
+    and MLA families) at its published width through ``ServeEngine`` on
+    the card: random f32 weights from a seeded generator, bf16 compute;
+    ``generate`` in every decode mode (identical greedy tokens), each
+    prefill launching every kernel of ``per_prefill`` that many times
+    (0: never); ``generate_many`` raises, as the reference's does; where
+    a prefill launches a kernel, the prefill logits with the kernels
+    against the plain versions (``prefill_vs_plain``); prefill and decode
+    times, peak memory and busy shares.  Returns what
+    the graphs phase reuses: the launch counts of the serving run, the
+    config, the model (still on the card), the prompts and every mode's
+    greedy tokens."""
     import numpy as np
     import torch
     from repro_torch.data import DataConfig, SyntheticStream
@@ -905,6 +1186,9 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
           f"{cfg.compute_dtype} compute)", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    free, total = torch.cuda.mem_get_info()
+    print(f"  device memory before the draw: {free} B free of {total} B, "
+          f"{torch.cuda.memory_allocated()} B allocated", flush=True)
     t0 = time.perf_counter()
     model = init_params(cfg, generator=torch.Generator(device=dev)
                         .manual_seed(0), device=dev)
@@ -969,36 +1253,12 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
 
     # -- prefill with the kernels against the plain versions --------------
     toks = torch.as_tensor(prompts).to(dev)
-    calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl)
-             for impl in ("kernel", "plain")}
-    f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    prefill_cmp = {}
-    for tag, c in (("bfloat16", cfg), ("float32", f32)):
-        lg = {impl: prefill(model, c, {"tokens": toks}, max_len,
-                            call)[0].double()
-              for impl, call in calls.items()}
-        torch.cuda.synchronize()
-        lp = lg["plain"]
-        d = lg["kernel"] - lp
-        row = {"max_abs_logit": lp.abs().max().item(),
-               "kernel": {"max_abs_err": d.abs().max().item(),
-                          "rel_l2": (d.norm() / lp.norm()).item()}}
-        tol = PREFILL_TOL[tag]
-        ok = (lg["kernel"].shape == (st["batch"], 1, cfg.vocab_size)
-              and bool(torch.isfinite(lg["kernel"]).all()))
-        if "rel_l2" in tol:
-            ok = ok and row["kernel"]["rel_l2"] <= tol["rel_l2"]
-        else:
-            ok = ok and bool((d.abs() <= tol["atol"]
-                              + tol["rtol"] * lp.abs()).all())
-        check(ok, f"{cfg.name} prefill logits in {tag} compute, kernels vs "
-                  f"plain versions: {row['kernel']} outside {tol}")
-        prefill_cmp[tag] = row
-        print(f"  prefill logits, {tag} compute (max |logit| "
-              f"{row['max_abs_logit']:.4g}): kernels vs plain versions "
-              f"max_abs_err {row['kernel']['max_abs_err']:.4g}, relative L2 "
-              f"{row['kernel']['rel_l2']:.4g}; bar {tol}", flush=True)
-        del lg, lp, d
+    kernels = any(per_prefill.values())
+    calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl,
+                              moe_no_drop=True)
+             for impl in (("kernel", "plain") if kernels else ("auto",))}
+    prefill_cmp = (prefill_vs_plain(check, cfg, model, toks, max_len)
+                   if kernels else {})
 
     def prefill_s(impl):
         torch.cuda.synchronize()
@@ -1007,16 +1267,18 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    runs = {"kernel": [], "plain": []}
-    for impl in ("kernel", "plain", "plain", "kernel", "kernel", "plain"):
+    runs = {impl: [] for impl in calls}
+    for impl in (("kernel", "plain", "plain", "kernel", "kernel", "plain")
+                 if kernels else ("auto",) * 3):
         runs[impl].append(prefill_s(impl))
     prefill_ms = {impl: statistics.median(v) * 1e3
                   for impl, v in runs.items()}
+    main_impl = "kernel" if kernels else "auto"
     n_steps, n_prof = 16, 3
     # room for every step timed below (the hybrid's K/V bound the position)
     steps_len = max(max_len, st["prompt_len"] + n_steps + n_prof + 4)
     _, cache = prefill(model, cfg, {"tokens": toks}, steps_len,
-                       calls["kernel"])
+                       calls[main_impl])
     step = build_sampling_step(model, cfg, 0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
     tok = toks[:, -1:]
@@ -1032,9 +1294,10 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     torch.cuda.synchronize()
     decode_ms = start.elapsed_time(end) / n_steps
     peak = torch.cuda.max_memory_allocated()
-    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): kernels "
-          f"{prefill_ms['kernel']:.3f} ms, plain {prefill_ms['plain']:.3f} "
-          f"ms (median of 3, host clock); decode step (batch "
+    print(f"  prefill (batch {st['batch']} x {st['prompt_len']}): "
+          + ", ".join(f"{'kernels' if impl == 'kernel' else impl} "
+                      f"{ms:.3f} ms" for impl, ms in prefill_ms.items())
+          + f" (median of 3, host clock); decode step (batch "
           f"{st['batch']}, step mode): {decode_ms:.3f} ms per step; peak "
           f"device memory {peak} B", flush=True)
 
@@ -1045,7 +1308,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
 
     busy = {"prefill": device_busy(
                 lambda: prefill(model, cfg, {"tokens": toks}, max_len,
-                                calls["kernel"]), 1),
+                                calls[main_impl]), 1),
             "decode_step": device_busy(step_once, n_prof)}
     for what, b in busy.items():
         print(f"  profile {what}: wall {b['wall_us']:.1f} us (profiled), "
@@ -1065,6 +1328,48 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     return {"launches": launches, "cfg": cfg, "model": model,
             "prompts": prompts, "outs": outs, "static": st,
             "max_len": max_len, "param_bytes": param_bytes}
+
+
+def prefill_vs_plain(check, cfg, model, toks, max_len):
+    """The last-position prefill logits of ``toks`` with the kernels
+    against the plain versions, in bf16 and in f32 compute (the same f32
+    weights), within ``PREFILL_TOL``; routing without drops, as the
+    engine's prefill routes.  Returns the errors by compute dtype."""
+    import torch
+    from repro_torch.models import CallConfig, prefill
+
+    calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl,
+                              moe_no_drop=True)
+             for impl in ("kernel", "plain")}
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rows = {}
+    for tag, c in (("bfloat16", cfg), ("float32", f32)):
+        lg = {impl: prefill(model, c, {"tokens": toks}, max_len,
+                            call)[0].double()
+              for impl, call in calls.items()}
+        torch.cuda.synchronize()
+        lp = lg["plain"]
+        d = lg["kernel"] - lp
+        row = {"max_abs_logit": lp.abs().max().item(),
+               "kernel": {"max_abs_err": d.abs().max().item(),
+                          "rel_l2": (d.norm() / lp.norm()).item()}}
+        tol = PREFILL_TOL[tag]
+        ok = (lg["kernel"].shape == (toks.shape[0], 1, cfg.vocab_size)
+              and bool(torch.isfinite(lg["kernel"]).all()))
+        if "rel_l2" in tol:
+            ok = ok and row["kernel"]["rel_l2"] <= tol["rel_l2"]
+        else:
+            ok = ok and bool((d.abs() <= tol["atol"]
+                              + tol["rtol"] * lp.abs()).all())
+        check(ok, f"{cfg.name} prefill logits in {tag} compute, kernels vs "
+                  f"plain versions: {row['kernel']} outside {tol}")
+        rows[tag] = row
+        print(f"  prefill logits, {tag} compute (max |logit| "
+              f"{row['max_abs_logit']:.4g}): kernels vs plain versions "
+              f"max_abs_err {row['kernel']['max_abs_err']:.4g}, relative L2 "
+              f"{row['kernel']['rel_l2']:.4g}; bar {tol}", flush=True)
+        del lg, lp, d
+    return rows
 
 
 def _intervals_ms(intervals):
@@ -1379,26 +1684,32 @@ def session_phase(check, report, device=None, sizes=None,
 
     print("== session: a retry-policy submit under a dropped arrival",
           flush=True)
-    inj = FaultInjector(FaultPlan([FaultSpec(FaultKind.LOST_ARRIVAL,
-                                             at_dispatch=0, count=1)]))
-    sess = (Session(device, faults=inj, policy=OffloadPolicy(
-        retry=RetryPolicy())) if device is not None else
-        Session(faults=inj, policy=OffloadPolicy(retry=RetryPolicy())))
     aops, aexp = axpy.make_instance(3)
-    # n=8: the ladder's bisection probe (an axpy of faults.PROBE_N = 840
-    # elements, as in the reference) splits over at most 8 clusters
-    err = held("retry", sess.submit(axpy, dict(aops), n=8).wait(), aexp)
-    hl = sess.health()
-    rungs = (hl.deadline_trips, hl.retries, hl.probes, hl.backups)
-    # tests/test_torch_fabric.py pins the same rungs for a lost arrival
-    check(rungs == (1, 1, 1, 0) and hl.jobs_ok == 1 and hl.jobs_failed == 0,
-          f"retry: rungs {rungs}, ok {hl.jobs_ok}, failed {hl.jobs_failed}")
-    out["retry"] = {"rungs": rungs, "jobs_ok": hl.jobs_ok,
-                    "max_abs_err": err,
-                    "health": dataclasses.asdict(hl)}
-    print(f"  axpy n=8: recovered, err {err:.2g}; (trips, retries, probes, "
-          f"backups) = {rungs}", flush=True)
-    sess.close()
+    # the ladder's bisection probe is an axpy of faults.probe_size(k)
+    # elements: the reference's 840 up to 8 clusters, lcm(840, k) past
+    # that (the reference's probe cannot be planned on 16 or 32)
+    for n in (8, 32):
+        inj = FaultInjector(FaultPlan([FaultSpec(FaultKind.LOST_ARRIVAL,
+                                                 at_dispatch=0, count=1)]))
+        sess = (Session(device, faults=inj, policy=OffloadPolicy(
+            retry=RetryPolicy())) if device is not None else
+            Session(faults=inj, policy=OffloadPolicy(retry=RetryPolicy())))
+        err = held(f"retry n={n}", sess.submit(axpy, dict(aops), n=n).wait(),
+                   aexp)
+        hl = sess.health()
+        rungs = (hl.deadline_trips, hl.retries, hl.probes, hl.backups)
+        # tests/test_torch_fabric.py and test_torch_probe.py pin the same
+        # rungs for a lost arrival
+        check(rungs == (1, 1, 1, 0) and hl.jobs_ok == 1
+              and hl.jobs_failed == 0,
+              f"retry n={n}: rungs {rungs}, ok {hl.jobs_ok}, failed "
+              f"{hl.jobs_failed}")
+        out["retry" if n == 8 else f"retry_n{n}"] = {
+            "rungs": rungs, "jobs_ok": hl.jobs_ok, "max_abs_err": err,
+            "health": dataclasses.asdict(hl)}
+        print(f"  axpy n={n}: recovered, err {err:.2g}; (trips, retries, "
+              f"probes, backups) = {rungs}", flush=True)
+        sess.close()
 
     print("== session: host cost of a single submit", flush=True)
     small = jobs.make_axpy()
@@ -2126,6 +2437,9 @@ def graphs_phase(check, report, served):
               f"{', '.join(f'{v:.3f}' for v in runs[k])}); busy share "
               f"{bz['busy_share']:.3f}, {bz['launches']} device ops a "
               f"call", flush=True)
+        print("    top device ops: " + "; ".join(
+            f"{name[:48]} {us:.1f} us x{c}" for name, us, c in bz["top"]),
+            flush=True)
     for k in ("step graph", "chunk graph"):
         g = g_step if k == "step graph" else g_chunk
         print(f"  {k}: capture {g.capture_s:.3f} s, pool {g.pool_bytes} B, "
@@ -2733,9 +3047,15 @@ def main() -> int:
     del hybrid_served
     torch.cuda.empty_cache()
 
-    # -- 9. what the main paths launched, and the result lines ---------------
+    # -- 9. the MoE family: deepseek-v2-lite (MLA, no kernel on its path),
+    #       then the reduced llama4 (GQA: the flash kernel) -----------------
+    moe_launches = moe_serving_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 10. what the main paths launched, and the result lines --------------
     launches["flash_attention"] = (serve_launches["flash_attention"]
-                                   + hybrid_launches["flash_attention"])
+                                   + hybrid_launches["flash_attention"]
+                                   + moe_launches["flash_attention"])
     launches["ssm_scan"] = (ssm_launches["ssm_scan"]
                             + hybrid_launches["ssm_scan"])
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())

@@ -386,3 +386,13 @@ def predict_recovery(job: Any, n: int, plan: FaultPlan, retry: Any,
 #: probe payload size — divisible by every cluster count up to 8, so the
 #: bisection probes can shard it on any subset of the test substrate
 PROBE_N = 840
+
+
+def probe_size(k: int) -> int:
+    """The bisection probe's axpy length for a group of ``k`` clusters:
+    ``PROBE_N`` wherever that divides (every k up to 8, as in the
+    reference), else lcm(``PROBE_N``, k) so the group can shard it (1680
+    elements at k = 16, 3360 at k = 32; the reference's probe cannot be
+    planned there).  The closed-form :func:`predict_recovery` keeps
+    ``PROBE_N``, as the reference's does."""
+    return math.lcm(PROBE_N, k)

@@ -61,8 +61,8 @@ from repro_torch.core import multicast as mc
 from repro_torch.core import simulator
 from repro_torch.core.fabric import ClusterLease, Overloaded
 from repro_torch.core.faults import (
-    PROBE_N, CompletionTimeout, FaultError, FaultInjector, SessionHealth,
-    deadline_cycles,
+    CompletionTimeout, FaultError, FaultInjector, SessionHealth,
+    deadline_cycles, probe_size,
 )
 from repro_torch.core.jobs import PaperJob, make_axpy, stack_instances
 from repro_torch.core.offload import (
@@ -1393,13 +1393,14 @@ class Session:
         inj = self._faults
         if inj is None:
             return set(exc.clusters)
-        probe_job = make_axpy(PROBE_N)
         dead: set = set()
         stack: List[List[int]] = [sorted(exc.clusters)]
         while stack:
             grp = stack.pop()
             if not grp:
                 continue
+            # sized so the group can shard it: PROBE_N up to 8 clusters
+            probe_job = make_axpy(probe_size(len(grp)))
             self._health.probes += 1
             p_est = amodel.predict_total_v2(probe_job.spec, len(grp),
                                             self.params)

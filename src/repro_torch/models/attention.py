@@ -7,9 +7,14 @@ Four implementations behind one switch (``impl``):
   * "kernel"  — the hand-written CUDA flash-attention kernel through
                 ``kernels.ops.attention`` (the twin of "pallas"); CUDA
                 tensors only, and it raises for a prefix-LM mask;
-  * "auto"    — "kernel" for a CUDA tensor, "plain" for a CPU one.
+  * "auto"    — "kernel" for a flash call on CUDA tensors (q, k and v of
+                one head dim, no prefix mask), "plain" otherwise: on the
+                CPU, for MLA's q/k of nope + rope with v of
+                ``v_head_dim``, and for a prefix-LM mask.  A head dim the
+                kernel is not built for stays "kernel" and raises.
 The reference's "stub" (the flash-substitution measurement) comes with
-``launch/flashsub.py``; MLA comes with the MLA family.
+``launch/flashsub.py``.  MLA (DeepSeek-V2's low-rank KV compression) is at
+the end of the file.
 
 Decode (one query token against a cache) is a separate path in plain
 torch, on the card too, as the reference keeps it always-XLA: it is a
@@ -25,13 +30,13 @@ activations' dtype at use.
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
 IMPLS = ("plain", "chunked", "kernel", "auto")
@@ -39,8 +44,26 @@ IMPLS = ("plain", "chunked", "kernel", "auto")
 Params = Mapping[str, torch.Tensor]
 
 
-def resolve_impl(impl: str, t: torch.Tensor) -> str:
-    """``impl`` with "auto" decided by where ``t`` lies."""
+def kernel_takes(q: torch.Tensor, k: Optional[torch.Tensor] = None,
+                 v: Optional[torch.Tensor] = None,
+                 prefix_len: int = 0) -> bool:
+    """Whether this is a flash-kernel call: q, k and v of one head dim and
+    no prefix mask (the device aside).  The reference's kernel never runs
+    MLA's split dims or a prefix mask; any single head dim it does run, so
+    one outside the port's ``HEAD_DIMS`` is still the kernel's call (and
+    the kernel's wrapper raises for it rather than going plain unseen)."""
+    d = q.shape[-1]
+    return (not prefix_len
+            and all(t is None or t.shape[-1] == d for t in (k, v)))
+
+
+def resolve_impl(impl: str, q: torch.Tensor,
+                 k: Optional[torch.Tensor] = None,
+                 v: Optional[torch.Tensor] = None,
+                 prefix_len: int = 0) -> str:
+    """``impl`` with "auto" decided: "kernel" for a flash call on CUDA
+    tensors (:func:`kernel_takes`), else "plain"; "kernel", chosen or
+    resolved, raises where the kernel refuses the shapes."""
     if impl == "stub":
         raise NotImplementedError(
             "attn_impl='stub' comes with launch/flashsub.py "
@@ -48,7 +71,8 @@ def resolve_impl(impl: str, t: torch.Tensor) -> str:
     if impl not in IMPLS:
         raise ValueError(f"attn impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
-        return "kernel" if t.is_cuda else "plain"
+        return ("kernel" if q.is_cuda and kernel_takes(q, k, v, prefix_len)
+                else "plain")
     return impl
 
 
@@ -136,7 +160,7 @@ def multihead_attention(
     prefix_len: int = 0,
     chunk: int = 512,
 ) -> torch.Tensor:
-    impl = resolve_impl(impl, q)
+    impl = resolve_impl(impl, q, k, v, prefix_len)
     if impl == "kernel":
         if prefix_len:
             raise NotImplementedError("prefix-LM uses plain/chunked")
@@ -150,7 +174,7 @@ def multihead_attention(
 
 
 # ---------------------------------------------------------------------------
-# GQA block (dense family)
+# GQA block (dense and MoE families)
 # ---------------------------------------------------------------------------
 
 
@@ -247,3 +271,93 @@ def gqa_decode_ragged(x, p: Params, cfg: ModelConfig, k_cache, v_cache,
     o = _decode_attend(q, kk, vv, valid, cfg, x.dtype)
     out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
     return out, k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): low-rank KV compression; the cache stores only
+# (c_kv, k_rope) — kv_lora_rank + rope_dim per token instead of 2·H·d.
+# ---------------------------------------------------------------------------
+
+
+def mla_project_q(x, p: Params, cfg: ModelConfig, positions):
+    """x -> (q_nope, q_rope rotated), each (B, H, S, ·)."""
+    m = cfg.mla
+    q = torch.matmul(x, p["wq"].to(x.dtype))
+    q = q.reshape(x.shape[0], x.shape[1], cfg.n_heads,
+                  m.qk_nope_head_dim + m.qk_rope_head_dim).transpose(1, 2)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions[:, None], cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_compress_kv(x, p: Params, cfg: ModelConfig, positions):
+    """x -> (c_kv normed (B, S, rank), k_rope rotated (B, 1, S, rope)):
+    exactly what the MLA cache stores."""
+    m = cfg.mla
+    ckv = torch.matmul(x, p["wdkv"].to(x.dtype))
+    c, k_rope = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_head_dim],
+                            dim=-1)
+    c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, None], positions[:, None], cfg.rope_theta)
+    return c, k_rope
+
+
+def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
+                  impl: str = "auto", c=None, k_rope=None,
+                  chunk: int = 512) -> torch.Tensor:
+    """Full-sequence MLA attention (``c``/``k_rope`` may be precomputed, as
+    prefill does).  q and k have head dim nope + rope and v ``v_head_dim``,
+    so "auto" resolves to "plain" (the flash kernel takes one head dim)."""
+    m = cfg.mla
+    dt = x.dtype
+    b = x.shape[0]
+    if c is None:
+        c, k_rope = mla_compress_kv(x, p, cfg, positions)
+    q_nope, q_rope = mla_project_q(x, p, cfg, positions)
+    k_nope = _split_heads(torch.matmul(c, p["wuk"].to(dt)), cfg.n_heads)
+    v = _split_heads(torch.matmul(c, p["wuv"].to(dt)), cfg.n_heads)
+    k_rope_b = k_rope.expand(b, cfg.n_heads, k_rope.shape[2],
+                             m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    o = multihead_attention(q, k, v, impl=impl, chunk=chunk)
+    return torch.matmul(_merge_heads(o), p["wo"].to(dt))
+
+
+def mla_decode(x, p: Params, cfg: ModelConfig, c_cache, rope_cache, pos):
+    """One-token MLA decode against the compressed cache: ``wuk`` absorbed
+    into q, ``wuv`` applied after the softmax, the scale 1/sqrt(nope +
+    rope) as in the full-sequence path.
+
+    c_cache (B, Smax, rank), rope_cache (B, Smax, rope), written in place
+    at ``pos`` (a device int32 scalar or a Python int) and attended over
+    their whole length with the columns past ``pos`` masked, as
+    :func:`gqa_decode` does.  Returns (out, c_cache, rope_cache)."""
+    m = cfg.mla
+    dt = x.dtype
+    b = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    positions = pos.expand(b, 1)
+    c_new, k_rope_new = mla_compress_kv(x, p, cfg, positions)
+    idx = pos.to(torch.long).reshape(1)
+    c_cache.index_copy_(1, idx, c_new.to(c_cache.dtype))
+    rope_cache.index_copy_(1, idx, k_rope_new[:, 0].to(rope_cache.dtype))
+    q_nope, q_rope = mla_project_q(x, p, cfg, positions)   # (B,H,1,·)
+
+    # score = (q_nope·wukᵀ)·c + q_rope·k_rope
+    wuk = p["wuk"].to(dt).reshape(m.kv_lora_rank, cfg.n_heads,
+                                  m.qk_nope_head_dim)
+    q_c = torch.einsum("bhqn,rhn->bhqr", q_nope, wuk)      # (B,H,1,rank)
+    c32 = c_cache.to(torch.float32)
+    s = torch.einsum("bhqr,bsr->bhqs", q_c.to(torch.float32), c32)
+    s = s + torch.einsum("bhqn,bsn->bhqs", q_rope.to(torch.float32),
+                         rope_cache.to(torch.float32))
+    s = s / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    o_c = torch.einsum("bhqs,bsr->bhqr", torch.softmax(s, dim=-1), c32)
+    wuv = p["wuv"].to(dt).reshape(m.kv_lora_rank, cfg.n_heads, m.v_head_dim)
+    o = torch.einsum("bhqr,rhn->bhqn", o_c.to(dt), wuv)   # (B,H,1,v)
+    out = torch.matmul(_merge_heads(o), p["wo"].to(dt))
+    return out, c_cache, rope_cache

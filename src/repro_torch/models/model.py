@@ -1,28 +1,31 @@
 """Model assembly: init / forward / prefill / decode — twin of
-``repro.models.model`` for the dense, the SSM (Mamba-1) and the hybrid
-(Mamba-2 + Zamba2's shared attention block) families.
+``repro.models.model`` for the dense, the MoE (with GQA or with
+DeepSeek-V2's MLA attention), the SSM (Mamba-1) and the hybrid (Mamba-2 +
+Zamba2's shared attention block) families.
 
 The model is an ``nn.Module`` (:class:`Transformer`): the embedding, an
-``nn.ModuleList`` of layers (a decoder layer, a Mamba-1 layer for the
-``ssm`` family or a Mamba-2 layer for the ``hybrid`` one), the hybrid's
-one ``shared_block``, the final norm and the LM head.  Its parameter names
-follow the reference's tree with the layer index put in (``layers/attn/wq``
-stacked over L becomes ``layers.<i>.attn.wq``, ``layers/mixer/A_log``
-becomes ``layers.<i>.mixer.A_log``; ``shared_block/attn/wq`` is not
-stacked and stays ``shared_block.attn.wq``), so
-``convert.model_params_from_numpy`` maps one onto the other.  The
+``nn.ModuleList`` of layers (a decoder layer — GQA or MLA attention, a
+gated MLP or an MoE block — a Mamba-1 layer for the ``ssm`` family or a
+Mamba-2 layer for the ``hybrid`` one), the hybrid's one ``shared_block``,
+the final norm and the LM head.  Its parameter names follow the
+reference's tree with the layer index put in (``layers/attn/wq`` stacked
+over L becomes ``layers.<i>.attn.wq``, ``layers/moe/experts/wi`` becomes
+``layers.<i>.moe.experts.wi``, ``layers/mixer/A_log`` becomes
+``layers.<i>.mixer.A_log``; ``shared_block/attn/wq`` is not stacked and
+stays ``shared_block.attn.wq``), so ``convert.model_params_from_numpy``
+maps one onto the other.  The
 reference's ``lax.scan`` over the stacked layers is a loop over the
 ``ModuleList``, and its ``lax.cond`` on the layer index (the shared block
 after every ``period``-th layer) a Python test on the loop's index; every
 entry point is a function of (model, tensors), with the device taken from
 the model.
 
-The other families — MoE, MLA and the modality frontends — raise
+The modality frontends (the vlm and audio families) raise
 :class:`NotImplementedError` naming the ROADMAP item that brings them.
 Of ``CallConfig``'s fields, the reference's sharding knobs
 (``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) have no
-meaning on one device, ``attn_chunk_remat`` none without a backward pass,
-and ``moe_no_drop`` comes with the MoE family: none is ported.
+meaning on one device and ``attn_chunk_remat`` none without a backward
+pass: neither is ported.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -48,7 +52,8 @@ Cache = Dict[str, Any]
 
 #: where each family the port cannot build yet comes from
 _WAITS = "ROADMAP.md Queue 1 item 5"
-_BUILDS = "the port builds the dense, ssm and hybrid families only"
+_BUILDS = ("the port builds the dense, moe (GQA or MLA), ssm and hybrid "
+           "families; the vlm and audio frontends are next")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -57,9 +62,12 @@ def _dtype(name: str) -> torch.dtype:
 
 def require_ported(cfg: ModelConfig) -> None:
     """Raise for every configuration the port cannot build yet: it builds
-    the dense family, the ``ssm`` family (Mamba-1) and the ``hybrid``
-    family (Mamba-2 with a shared attention block)."""
-    parts = (("moe", cfg.moe), ("mla", cfg.mla), ("frontend", cfg.frontend))
+    the dense family, the ``moe`` family (with GQA or MLA attention), the
+    ``ssm`` family (Mamba-1) and the ``hybrid`` family (Mamba-2 with a
+    shared attention block); the modality frontends are still to come."""
+    parts: Tuple[Tuple[str, Any], ...] = (("frontend", cfg.frontend),)
+    if cfg.family in ("ssm", "hybrid"):
+        parts += (("moe", cfg.moe), ("mla", cfg.mla))
     if cfg.family != "hybrid":
         parts += (("hybrid", cfg.hybrid),)
     version = {"ssm": 1, "hybrid": 2}.get(cfg.family)
@@ -75,7 +83,7 @@ def require_ported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} part of the model is not ported "
                 f"yet (it comes with {_WAITS}); {_BUILDS}")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (it comes "
             f"with {_WAITS}); {_BUILDS}")
@@ -101,7 +109,12 @@ class CallConfig:
     # kept for the reference's signature; it means nothing without a
     # backward pass and is ignored until training lands (Queue 1 item 6)
     remat: bool = True
-    cast_params_once: bool = False  # one compute-dtype weight copy per call
+    moe_no_drop: bool = False       # exact MoE routing (serving / eval)
+    # one compute-dtype copy of every f32 layer weight per call (the MoE
+    # router too, as in the reference).  Off by default: at full width a
+    # copy costs half the weights again (deepseek-v2-lite-16b's 64.84 GB
+    # of f32 would add 32.4 GB of bf16, more than one 80 GB card has left)
+    cast_params_once: bool = False
 
 
 # =============================================================================
@@ -137,13 +150,70 @@ class MLP(nn.Module):
         self.wo = _param((f, d), dtype, device)
 
 
+class MLAAttention(nn.Module):
+    """DeepSeek-V2's multi-head latent attention, under the reference's
+    names: ``wq`` to H heads of nope + rope, ``wdkv`` to the compressed
+    KV (rank) and the shared rotary key (rope), ``kv_norm`` over the
+    rank, ``wuk``/``wuv`` up from the rank to H heads of nope/v, ``wo``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.wq = _param((d, h * qk), dtype, device)
+        self.wdkv = _param((d, m.kv_lora_rank + m.qk_rope_head_dim), dtype,
+                           device)
+        self.kv_norm = _param((m.kv_lora_rank,), dtype, device)
+        self.wuk = _param((m.kv_lora_rank, h * m.qk_nope_head_dim), dtype,
+                          device)
+        self.wuv = _param((m.kv_lora_rank, h * m.v_head_dim), dtype, device)
+        self.wo = _param((h * m.v_head_dim, d), dtype, device)
+
+
+class Experts(nn.Module):
+    """The routed experts stacked on a leading E axis: ``wi``/``wg`` (E,
+    d, fe), ``wo`` (E, fe, d)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        e, d, fe = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+        self.wi = _param((e, d, fe), dtype, device)
+        self.wg = _param((e, d, fe), dtype, device)
+        self.wo = _param((e, fe, d), dtype, device)
+
+
+class MoE(nn.Module):
+    """One layer's MoE block: the ``router`` (d, E), float32 whatever the
+    parameter dtype, as in the reference; the ``experts``; and, with
+    ``n_shared``, the always-on ``shared`` experts as one gated MLP of
+    width n_shared · fe."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        m = cfg.moe
+        self.router = _param((cfg.d_model, m.n_experts), torch.float32,
+                             device)
+        self.experts = Experts(cfg, dtype, device)
+        if m.n_shared:
+            self.shared = MLP(cfg.d_model, m.n_shared * m.d_ff_expert, dtype,
+                              device)
+
+
 class DecoderLayer(nn.Module):
+    """A decoder layer: ``ln1``, GQA (``Attention``) or MLA
+    (``MLAAttention``) attention, ``ln2``, and a gated MLP (``mlp``) or an
+    MoE block (``moe``)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), dtype, device)
         self.ln2 = _param((cfg.d_model,), dtype, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
+        self.attn = (MLAAttention if cfg.mla else Attention)(cfg, dtype,
+                                                             device)
+        if cfg.moe:
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
 
 
 class Mamba1Mixer(nn.Module):
@@ -213,23 +283,22 @@ class SharedBlock(nn.Module):
 
 def _tree(module: nn.Module, dtype: Optional[torch.dtype]
           ) -> Dict[str, Any]:
-    """``module``'s weights as the reference's tree, one level of children
-    deep; with ``dtype``, float32 leaves are cast copies."""
-    def leaf(t):
-        return t.to(dtype) if dtype is not None and \
-            t.dtype == torch.float32 else t
-
-    out: Dict[str, Any] = {n: leaf(t) for n, t in
-                           module.named_parameters(recurse=False)}
+    """``module``'s weights as the reference's nested tree (a child
+    module is a sub-tree: ``{"moe": {"router", "experts": {...}}}``); with
+    ``dtype``, float32 leaves are cast copies."""
+    out: Dict[str, Any] = {
+        n: t.to(dtype) if dtype is not None and t.dtype == torch.float32
+        else t for n, t in module.named_parameters(recurse=False)}
     for name, child in module.named_children():
-        out[name] = {n: leaf(t) for n, t in child.named_parameters()}
+        out[name] = _tree(child, dtype)
     return out
 
 
 class Transformer(nn.Module):
-    """A decoder-only model at ``cfg``'s widths: a dense transformer, a
-    stack of Mamba-1 layers for the ``ssm`` family, or a stack of Mamba-2
-    layers with one shared attention block for the ``hybrid`` family."""
+    """A decoder-only model at ``cfg``'s widths: a dense or MoE
+    transformer (GQA or MLA attention), a stack of Mamba-1 layers for the
+    ``ssm`` family, or a stack of Mamba-2 layers with one shared attention
+    block for the ``hybrid`` family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -254,8 +323,9 @@ class Transformer(nn.Module):
     def layer_params(self, i: int, dtype: Optional[torch.dtype] = None
                      ) -> Dict[str, Any]:
         """Layer ``i``'s weights as the reference's tree (``{"ln1", "ln2",
-        "attn": {...}, "mlp": {...}}``, or ``{"ln", "mixer": {...}}``);
-        with ``dtype``, float32 leaves are cast copies."""
+        "attn": {...}, "mlp": {...}}`` or ``"moe": {"router", "experts":
+        {...}, "shared": {...}}``, or ``{"ln", "mixer": {...}}``); with
+        ``dtype``, float32 leaves are cast copies."""
         return _tree(self.layers[i], dtype)
 
     def shared_params(self, dtype: Optional[torch.dtype] = None
@@ -298,15 +368,36 @@ def _init_mamba2_(mixer: Mamba2Mixer, g: torch.Generator) -> None:
     dense_init_(mixer.out_proj, g)
 
 
-def _init_attention_mlp_(attn_mod: Attention, mlp: MLP, qkv_bias: bool,
-                         g: torch.Generator) -> None:
+def _init_attention_(attn_mod: Attention, qkv_bias: bool,
+                     g: torch.Generator) -> None:
     for name in ("wq", "wk", "wv", "wo"):
         dense_init_(getattr(attn_mod, name), g)
     if qkv_bias:
         for name in ("bq", "bk", "bv"):
             getattr(attn_mod, name).zero_()
+
+
+def _init_mlp_(mlp: nn.Module, g: torch.Generator) -> None:
     for name in ("wi", "wg", "wo"):
         dense_init_(getattr(mlp, name), g)
+
+
+def _init_mla_(mla: MLAAttention, g: torch.Generator) -> None:
+    """The reference's ``_mla_params`` values: every matrix drawn on its
+    fan-in axis, ``kv_norm`` ones."""
+    for name in ("wq", "wdkv", "wuk", "wuv", "wo"):
+        dense_init_(getattr(mla, name), g)
+    mla.kv_norm.fill_(1.0)
+
+
+def _init_moe_(moe: MoE, g: torch.Generator) -> None:
+    """The reference's ``_moe_params`` values: the router and every
+    expert matrix drawn on its fan-in axis (d for ``wi``/``wg``, fe for
+    ``wo``), the shared experts as a gated MLP."""
+    dense_init_(moe.router, g)
+    _init_mlp_(moe.experts, g)
+    if hasattr(moe, "shared"):
+        _init_mlp_(moe.shared, g)
 
 
 def init_params(cfg: ModelConfig, *,
@@ -339,12 +430,20 @@ def init_params(cfg: ModelConfig, *,
             else:
                 layer.ln1.fill_(1.0)
                 layer.ln2.fill_(1.0)
-                _init_attention_mlp_(layer.attn, layer.mlp, cfg.qkv_bias, g)
+                if cfg.mla:
+                    _init_mla_(layer.attn, g)
+                else:
+                    _init_attention_(layer.attn, cfg.qkv_bias, g)
+                if cfg.moe:
+                    _init_moe_(layer.moe, g)
+                else:
+                    _init_mlp_(layer.mlp, g)
         if cfg.family == "hybrid":
             sb = model.shared_block
             sb.ln1.fill_(1.0)
             sb.ln2.fill_(1.0)
-            _init_attention_mlp_(sb.attn, sb.mlp, False, g)
+            _init_attention_(sb.attn, False, g)
+            _init_mlp_(sb.mlp, g)
     return model
 
 
@@ -404,6 +503,15 @@ def _mlp(h, lp, cfg: ModelConfig):
                      cfg.act)
 
 
+def _ffn(h, lp, cfg: ModelConfig, no_drop: bool
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A decoder layer's second half: its MoE block (-> (delta, aux)) or
+    its gated MLP (-> (delta, None))."""
+    if cfg.moe:
+        return moe_lib.moe_block(h, lp["moe"], cfg, no_drop=no_drop)
+    return _mlp(h, lp, cfg), None
+
+
 def _shared_weights(model: Transformer, cfg: ModelConfig,
                     call: CallConfig) -> Dict[str, Any]:
     """The shared block's weights: as they are (each use casts them, as
@@ -449,6 +557,7 @@ def forward(model: Transformer, cfg: ModelConfig,
                 x = shared_attn_block(x, sb, cfg, positions, call)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return unembed(model, cfg, x), aux
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layer_list(model, cfg, call):
         if cfg.family == "ssm":
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
@@ -456,12 +565,20 @@ def forward(model: Transformer, cfg: ModelConfig,
                                          impl=call.ssm_impl)
             continue
         h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        x = x + attn.gqa_attention(h, lp["attn"], cfg, positions,
-                                   impl=call.attn_impl, prefix_len=prefix_len,
-                                   chunk=call.attn_chunk)
+        if cfg.mla:
+            x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
+                                       impl=call.attn_impl,
+                                       chunk=call.attn_chunk)
+        else:
+            x = x + attn.gqa_attention(h, lp["attn"], cfg, positions,
+                                       impl=call.attn_impl,
+                                       prefix_len=prefix_len,
+                                       chunk=call.attn_chunk)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        x = x + _mlp(h, lp, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        delta, layer_aux = _ffn(h, lp, cfg, call.moe_no_drop)
+        x = x + delta
+        if layer_aux is not None:
+            aux = aux + layer_aux
     return unembed(model, cfg, x), aux
 
 
@@ -474,9 +591,19 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     last K-1 pre-conv inputs, ``h`` (L, B, d_inner, N) float32 and
     ``pos``.  For the ``hybrid`` family ``conv`` (L, B, K-1, d_inner + 2N),
     ``h`` (L, B, H, P, N) float32, the shared block's ``k``/``v`` (L //
-    period, B, max_len, Hkv·dh), one slot per application, and ``pos``."""
+    period, B, max_len, Hkv·dh), one slot per application, and ``pos``.
+    For MLA the compressed cache: ``c`` (L, B, max_len, kv_lora_rank),
+    ``krope`` (L, B, max_len, rope) and ``pos``."""
     require_ported(cfg)
     dt = _dtype(dtype_str or cfg.compute_dtype)
+    if cfg.mla:
+        m = cfg.mla
+        return {"c": torch.zeros((cfg.n_layers, batch_size, max_len,
+                                  m.kv_lora_rank), dtype=dt, device=device),
+                "krope": torch.zeros((cfg.n_layers, batch_size, max_len,
+                                      m.qk_rope_head_dim), dtype=dt,
+                                     device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
     if cfg.family == "hybrid":
         s, scfg = cfg.ssm, shared_config(cfg)
         nh = cfg.d_inner // s.headdim
@@ -557,15 +684,25 @@ def prefill(model: Transformer, cfg: ModelConfig,
     cache = _into(cache, cfg, b, max_len, x.device)
     for i, lp in enumerate(_layer_list(model, cfg, call)):
         h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        q, k, v = attn.gqa_project(h, lp["attn"], cfg, positions)
-        o = attn.multihead_attention(q, k, v, impl=call.attn_impl,
-                                     prefix_len=prefix_len,
-                                     chunk=call.attn_chunk)
-        x = x + torch.matmul(attn._merge_heads(o), lp["attn"]["wo"].to(dt))
-        cache["k"][i, :, :s] = attn._merge_heads(k).to(cache["k"].dtype)
-        cache["v"][i, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)
+        if cfg.mla:
+            # the compressed states are the cache: computed once, stashed
+            c, krope = attn.mla_compress_kv(h, lp["attn"], cfg, positions)
+            x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
+                                       impl=call.attn_impl, c=c,
+                                       k_rope=krope, chunk=call.attn_chunk)
+            cache["c"][i, :, :s] = c.to(cache["c"].dtype)
+            cache["krope"][i, :, :s] = krope[:, 0].to(cache["krope"].dtype)
+        else:
+            q, k, v = attn.gqa_project(h, lp["attn"], cfg, positions)
+            o = attn.multihead_attention(q, k, v, impl=call.attn_impl,
+                                         prefix_len=prefix_len,
+                                         chunk=call.attn_chunk)
+            x = x + torch.matmul(attn._merge_heads(o),
+                                 lp["attn"]["wo"].to(dt))
+            cache["k"][i, :, :s] = attn._merge_heads(k).to(cache["k"].dtype)
+            cache["v"][i, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)
         h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _ffn(h, lp, cfg, call.moe_no_drop)[0]
     cache["pos"].fill_(s)
     return unembed(model, cfg, x[:, -1:]), cache
 
@@ -665,15 +802,21 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Cache,
         new_cache = {name: cache[name] for name in ("conv", "h", "k", "v")}
         new_cache["pos"] = pos + 1
         return unembed(model, cfg, x), new_cache
+    # the MLA and GQA branches: attention against the cache, then the MLP
+    # or the MoE block with exact routing (no_drop, as the reference's
+    # decode steps route whatever the call says)
+    names = ("c", "krope") if cfg.mla else ("k", "v")
+    decode = attn.mla_decode if cfg.mla else attn.gqa_decode
     for i in range(cfg.n_layers):
         lp = model.layer_params(i)
         hin = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        o, _, _ = attn.gqa_decode(hin, lp["attn"], cfg, cache["k"][i],
-                                  cache["v"][i], pos)
+        o, _, _ = decode(hin, lp["attn"], cfg, cache[names[0]][i],
+                         cache[names[1]][i], pos)
         x = x + o
         hin = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        x = x + _mlp(hin, lp, cfg)
-    new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+        x = x + _ffn(hin, lp, cfg, True)[0]
+    new_cache = {name: cache[name] for name in names}
+    new_cache["pos"] = pos + 1
     return unembed(model, cfg, x), new_cache
 
 
@@ -686,8 +829,9 @@ def decode_step_ragged(model: Transformer, cfg: ModelConfig, cache: Cache,
     ``pos_b``: (B,) integer tensor on the model's device — each row writes
     its KV at its own cache position and attends over its own prefix.  The
     returned ``pos`` is ``max(pos_b) + 1`` as a device scalar (no sync).
-    Attention families only, as in the reference: an SSM state cache is a
-    position-free recurrence whose rows cannot be shifted."""
+    GQA attention only (the dense family and MoE with GQA), as in the
+    reference: an SSM state cache is a position-free recurrence whose rows
+    cannot be shifted, and MLA keeps the uniform-``pos`` path."""
     if cfg.family in ("ssm", "hybrid") or cfg.mla or cfg.frontend:
         raise NotImplementedError(
             "ragged decode is implemented for the plain attention family "
@@ -705,6 +849,6 @@ def decode_step_ragged(model: Transformer, cfg: ModelConfig, cache: Cache,
                                          cache["v"][i], pos_b)
         x = x + o
         hin = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        x = x + _mlp(hin, lp, cfg)
+        x = x + _ffn(hin, lp, cfg, True)[0]
     new_cache = {"k": cache["k"], "v": cache["v"], "pos": pos_b.max() + 1}
     return unembed(model, cfg, x), new_cache

@@ -41,12 +41,16 @@ Continuous batching (``generate_many``) runs the reference's slot
 scheduler: bucketed prefill-inserts of ``prompt[:-1]`` into free slots'
 cache rows, one ragged decode step advancing every occupied slot, retire on
 the done-mask and refill from the queue, and one drain of the tokens at the
-end.  As in the reference it needs the plain attention family: it raises
+end.  As in the reference it needs GQA attention (the dense family, or
+MoE with GQA such as llama4-scout): it raises
 :class:`NotImplementedError` for the ``ssm`` and ``hybrid`` families, MLA
 and the modality frontends.  ``generate`` serves the ``ssm`` family
-(falcon-mamba) with its state cache (``conv``, ``h``, ``pos``) and the
+(falcon-mamba) with its state cache (``conv``, ``h``, ``pos``), the
 ``hybrid`` family (zamba2) with its state cache and the shared block's
-K/V, one slot per application (``conv``, ``h``, ``k``, ``v``, ``pos``).
+K/V, one slot per application (``conv``, ``h``, ``k``, ``v``, ``pos``),
+and MLA (deepseek-v2-lite) with its compressed cache (``c``, ``krope``,
+``pos``).  MoE layers route without drops in every serving program
+(``SERVE_CALL``), as the reference's do.
 
 Sampling: temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed`` on each call (Gumbel-max over ``logits /
@@ -87,6 +91,11 @@ from repro_torch.models.model import (
 )
 
 
+#: the serving programs' call: exact MoE routing (C = tokens), as the
+#: reference's engine and its `build_*` programs default to
+SERVE_CALL = CallConfig(moe_no_drop=True)
+
+
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """The engine's device: the card unless the caller asks for the CPU.
     Raises when CUDA is asked for (explicitly or by default) and absent."""
@@ -115,7 +124,7 @@ def _sampler(temperature: float):
 
 
 def build_serve_step(model: Transformer, cfg: ModelConfig,
-                     call: CallConfig = CallConfig()):
+                     call: CallConfig = SERVE_CALL):
     """-> step(cache, tokens (B, 1)) -> (logits (B, 1, V), cache)."""
     def step(cache, tokens):
         return decode_step(model, cfg, cache, tokens, call)
@@ -124,7 +133,7 @@ def build_serve_step(model: Transformer, cfg: ModelConfig,
 
 def build_sampling_step(model: Transformer, cfg: ModelConfig,
                         temperature: float,
-                        call: CallConfig = CallConfig()):
+                        call: CallConfig = SERVE_CALL):
     """Device-resident decode+sample, one token per call:
     (cache, tok (B, 1), generator) -> (next tok (B, 1), cache)."""
     sample = _sampler(temperature)
@@ -137,7 +146,7 @@ def build_sampling_step(model: Transformer, cfg: ModelConfig,
 
 def build_decode_chunk(model: Transformer, cfg: ModelConfig,
                        temperature: float, chunk: int,
-                       call: CallConfig = CallConfig()):
+                       call: CallConfig = SERVE_CALL):
     """``chunk`` tokens per call, a loop of the single step's body (one
     graph on the card): (cache, tok (B, 1), generator) -> (toks (B,
     chunk), tok', cache)."""
@@ -154,7 +163,7 @@ def build_decode_chunk(model: Transformer, cfg: ModelConfig,
 
 def build_ragged_step(model: Transformer, cfg: ModelConfig,
                       temperature: float,
-                      call: CallConfig = CallConfig()):
+                      call: CallConfig = SERVE_CALL):
     """Continuous-batching decode step: per-slot positions + done-mask.
 
     (cache, tok (B,1), pos_b (B,), active (B,), generator) ->
@@ -237,7 +246,7 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
                  scfg: ServeConfig,
-                 call: CallConfig = CallConfig(), *,
+                 call: CallConfig = SERVE_CALL, *,
                  device: Union[None, str, torch.device] = None,
                  cluster_ids: Optional[Sequence[int]] = None):
         self.cfg, self.scfg, self.call = cfg, scfg, call
@@ -318,11 +327,10 @@ class ServeEngine:
 
         ``b`` may be any size up to the configured batch: a sub-batch is
         padded to ``scfg.batch`` (repeating the last prompt row) and the
-        output sliced back.  Batch rows are computed independently, so
-        padding does not change the real rows' tokens.  (The reference's
-        ``extra_inputs`` feed the modality frontends, which come with
-        ROADMAP.md Queue 1 item 5; the port builds the dense, ssm and
-        hybrid families.)
+        output sliced back.  Batch rows are computed independently (MoE
+        routing without drops included), so padding does not change the
+        real rows' tokens.  (The reference's ``extra_inputs`` feed the
+        modality frontends, which come with ROADMAP.md Queue 1 item 5.)
         """
         model = self._model()
         prompts = np.asarray(prompts)
@@ -633,7 +641,7 @@ class ServeTenant:
                  tenant: str = "serve",
                  floor: int = 1,
                  burst: Optional[int] = None,
-                 call: CallConfig = CallConfig()):
+                 call: CallConfig = SERVE_CALL):
         if floor < 1:
             raise ValueError(f"floor must be >= 1, got {floor}")
         self.scheduler = scheduler
