@@ -111,7 +111,8 @@ no JAX and nothing of the reference package.
    kernels against both plain versions; then ``graphs_phase``.  The flash
    and scan phases also time the two kernels at this model's shapes (q
    (4, 32, 512, 80) bf16; a, b (4, 256, 5120, 64) f32) and the expanded
-   decay of one of its chunks.
+   decay of one of its chunks; the flash phase also times musicgen-large's
+   prefill call (q = kv = (4, 32, 512, 64) bf16, causal; step 10).
 9. Serving the MoE family (``moe_serving_phase``): deepseek-v2-lite-16b
    at its published width and depth, nothing cut (27 layers, d 2048; MLA
    with 16 heads, kv_lora 512, nope 128, rope 64, v 128; 64 routed
@@ -133,10 +134,24 @@ no JAX and nothing of the reference package.
    512, 32) against k/v (4, 2, 512, 32)), and its ``graphs_phase``.  (The
    session phase's retry runs at n = 8 and n = 32: the bisection probe is
    sized by ``faults.probe_size``.)
-10. The ``kernels:`` line with the counts (the flash kernel's from
-   Yi-9B's, zamba2's and the reduced llama4's runs, the scan's from
-   falcon-mamba's and zamba2's), one JSON line of the kernels' numbers,
-   the card line, and last ``{"ok": true, "device": {...}}``.
+10. Serving the modality frontends (``frontend_serving_phase``), each at
+   its published width and depth (float32 weights from a seeded generator
+   on the card, bf16 compute), the same prompts and modes as falcon-mamba,
+   ``generate_many`` raising as the reference's does, then each model's
+   ``graphs_phase``: paligemma-3b (18 layers, d 2048, 8/1 heads of 256,
+   2,508,662,784 weights) with 256 positions of precomputed patches from
+   the prompts' stream before each prompt under the prefix-LM mask, so its
+   attention runs plain and no flash or scan launch moves over its phase;
+   its decode step after the prefix against the full-sequence path in
+   float32 compute (relative L2 within 1e-3; the bf16 figure printed).
+   Then musicgen-large (48 layers, d 2048, 32 heads of 64, sinusoidal
+   positions; 3,229,812,736 weights): 48 flash launches a prefill and its
+   prefill logits with the kernel against the plain attention.
+11. The ``kernels:`` line with the counts (the flash kernel's from
+   Yi-9B's, zamba2's, the reduced llama4's and musicgen's runs, the
+   scan's from falcon-mamba's and zamba2's), one JSON line of the
+   kernels' numbers, the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
 measured is also written to ``DIR/chip_smoke.json`` (default
@@ -255,10 +270,20 @@ HYBRID_FLASH_SHAPE = ((4, 32, 512, 80), (4, 32, 512, 80))
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
 MOE_GQA_ARCH = "llama4-scout-17b-a16e"
-#: the MLA decode step's logits against the full-sequence path's, float32
-#: compute, as a relative L2 distance (the bar of the same comparison in
+#: the modality frontends, each at its published width and depth:
+#: paligemma-3b (the vision stub: 256 prefix positions of precomputed
+#: patches under a prefix-LM mask, so its attention runs plain) and
+#: musicgen-large (the audio stub: 32 heads of 64 through the flash kernel;
+#: one flash call of its prefill below)
+VISION_ARCH = "paligemma-3b"
+AUDIO_ARCH = "musicgen-large"
+FRONTEND_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
+AUDIO_FLASH_SHAPE = ((4, 32, 512, 64), (4, 32, 512, 64))
+#: a decode step's logits against the full-sequence path's (deepseek's
+#: MLA step, paligemma's step after its prefix), float32 compute, as a
+#: relative L2 distance (the bar of the same comparison in
 #: tests/test_models_smoke.py:70-72)
-MLA_DECODE_TOL = 1e-3
+DECODE_TOL = 1e-3
 SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 #: the lint phase: alternating passes of each original and fixed submission
@@ -466,6 +491,7 @@ def flash_phase(check, report, time_ms):
     b, st = SERVE_STATIC["batch"], SERVE_STATIC["prompt_len"]
     row = timed((b, 32, st, 128), (b, 4, st, 128), "prefill")  # Yi-9B's
     timed(*HYBRID_FLASH_SHAPE, "zamba2 prefill")   # head dim 80, padded
+    timed(*AUDIO_FLASH_SHAPE, "musicgen prefill")  # head dim 64
     timed(*FLASH_OPS_SHAPE, "operations-bound")
     return row
 
@@ -950,19 +976,6 @@ def moe_serving_phase(check, report):
                f"{e.n_shared} shared; vocab {cfg.vocab_size}; "
                f"cast_params_once off"))
     mla_decode_check(check, report, served)
-    # a decode step with the per-use casts: every f32 weight read once,
-    # each matrix written and read again in bf16 (its f32 bytes), the
-    # embedding's unread rows and the f32 router (no copy) aside
-    model = served["model"]
-    cast = sum(p.numel() * 2 * 2 for n, p in model.named_parameters()
-               if p.ndim >= 2 and n != "embed" and not n.endswith("router"))
-    unread = (cfg.vocab_size - MOE_STATIC["batch"]) * cfg.d_model * 4
-    with_casts = served["param_bytes"] - unread + cast
-    report["moe_serving"]["step_bytes_with_casts"] = with_casts
-    print(f"  a decode step with the per-use casts moves {with_casts} B: "
-          f"{with_casts / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s",
-          flush=True)
-    del model
     graphs_phase(check, report, served)
     torch.cuda.synchronize()
     # counted from the serving run's reset through the graphs phase
@@ -983,7 +996,7 @@ def mla_decode_check(check, report, served):
     """deepseek's decode step after a prefill of the prompts against the
     prefill's last-position logits over the prompts plus that token, at
     full width and depth: in float32 compute (the same f32 weights, no
-    copy) within ``MLA_DECODE_TOL`` relative L2; the bf16 figure is
+    copy) within ``DECODE_TOL`` relative L2; the bf16 figure is
     printed beside it, not a gate.  Both route without drops.  Beside
     each figure, the (layer, token) pairs whose top-k expert sets differ
     between the two paths (the indices ``moe.route`` returns, recorded
@@ -1043,9 +1056,9 @@ def mla_decode_check(check, report, served):
         del dec, full, d, dec_idx, full_idx
         torch.cuda.empty_cache()
     r32 = rows["float32"]
-    check(r32["finite"] and r32["rel_l2"] <= MLA_DECODE_TOL,
+    check(r32["finite"] and r32["rel_l2"] <= DECODE_TOL,
           f"{cfg.name}: the f32 MLA decode step is {r32} from the "
-          f"full-sequence path (bar: relative L2 {MLA_DECODE_TOL})")
+          f"full-sequence path (bar: relative L2 {DECODE_TOL})")
     report["moe_serving"]["mla_decode"] = rows
     for tag, r in rows.items():
         print(f"  MLA decode vs full sequence, {tag} compute: relative L2 "
@@ -1054,7 +1067,7 @@ def mla_decode_check(check, report, served):
               f"expert sets differ in {r['routing_flips']} of "
               f"{r['routings']} (MoE layer, token) pairs, first at MoE "
               f"layer {r['first_flip_layer']}"
-              + (f"; bar {MLA_DECODE_TOL}" if tag == "float32"
+              + (f"; bar {DECODE_TOL}" if tag == "float32"
                  else "; not a gate"), flush=True)
 
 
@@ -1143,8 +1156,9 @@ def moe_gqa_phase(check, report):
           f" = {cfg.n_layers} a prefill x {prefills}", flush=True)
     # the flash kernel at this prefill's GQA shapes against the plain
     # attention, through the whole model
-    prefill_cmp = prefill_vs_plain(check, cfg, model,
-                                   torch.as_tensor(prompts).to(dev), max_len)
+    prefill_cmp = prefill_vs_plain(
+        check, cfg, model, {"tokens": torch.as_tensor(prompts).to(dev)},
+        max_len)
     report["moe_gqa_serving"] = {
         "arch": cfg.name, "wall_s": wall, "continuous_s": many_s,
         "stats": many_stats, "launches": launches, "prefills": prefills,
@@ -1159,12 +1173,142 @@ def moe_gqa_phase(check, report):
     return launches
 
 
+def frontend_serving_phase(check, report):
+    """The modality frontends on the card, each at its published width and
+    depth through ``ServeEngine`` (``serve_state_model``), then its
+    ``graphs_phase``.  paligemma-3b: 256 positions of precomputed patches
+    (drawn from the prompts' stream) before each 512-token prompt under the
+    prefix-LM mask, so "auto" resolves to the plain attention and no
+    kernel of the port is on its path (the flash and scan counts must not
+    move over its whole phase); its decode step after the prefix against
+    the full-sequence path (``prefix_decode_check``).  musicgen-large: the
+    audio stub, codec tokens with sinusoidal positions, 32 heads of 64
+    through the flash kernel once a layer a prefill, its prefill logits
+    with the kernel against the plain attention.  Returns musicgen's
+    launch counts."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import get
+
+    cfg = get(VISION_ARCH)
+    fe = cfg.frontend
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.act,
+           cfg.embed_scale, cfg.tie_embeddings, fe.kind, fe.n_prefix_tokens)
+          == ("vlm", 18, 2048, 8, 1, 256, 16384, 257216, "gelu", True, True,
+              "vision_stub", 256),
+          f"{cfg.name} is not at its published width: {cfg}")
+    served = serve_state_model(
+        check, report, cfg, FRONTEND_STATIC, key="vision_serving",
+        n_params=2_508_662_784,
+        per_prefill={"flash_attention": 0, "ssm_scan": 0},
+        shape=(f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+               f"{cfg.n_kv_heads} heads of {cfg.head_dim}, GeGLU d_ff "
+               f"{cfg.d_ff}, vocab {cfg.vocab_size} tied; the vision stub: "
+               f"{fe.n_prefix_tokens} patch positions before the prompt, "
+               f"prefix-LM mask"))
+    prefix_decode_check(check, report, served)
+    graphs_phase(check, report, served)
+    torch.cuda.synchronize()
+    # counted from the serving run's reset through the graphs phase
+    moved = {k: build.launch_counts()[k]
+             for k in ("flash_attention", "ssm_scan")}
+    check(moved == {"flash_attention": 0, "ssm_scan": 0},
+          f"{cfg.name} launched model kernels: {moved} ('auto' must "
+          f"resolve to the plain attention for a prefix mask)")
+    report["vision_serving"]["kernel_launches_whole_phase"] = moved
+    print(f"  {cfg.name}: model-kernel launches over the whole phase "
+          f"{moved}", flush=True)
+    del served
+    torch.cuda.empty_cache()
+
+    cfg = get(AUDIO_ARCH)
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.pos_embedding, cfg.tie_embeddings, cfg.frontend.kind)
+          == ("audio", 48, 2048, 32, 32, 64, 8192, 2048, "sinusoidal", False,
+              "audio_stub"),
+          f"{cfg.name} is not at its published width: {cfg}")
+    per_prefill = {"flash_attention": cfg.n_layers, "ssm_scan": 0}
+    check(per_prefill["flash_attention"] == 48,
+          f"{cfg.name}: a prefill's launches would be {per_prefill}")
+    served = serve_state_model(
+        check, report, cfg, FRONTEND_STATIC, key="audio_serving",
+        n_params=3_229_812_736, per_prefill=per_prefill,
+        shape=(f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+               f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+               f"vocab {cfg.vocab_size}; the audio stub: codec tokens with "
+               f"sinusoidal positions"))
+    graphs_phase(check, report, served)
+    launches = served["launches"]
+    del served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def prefix_decode_check(check, report, served):
+    """paligemma's decode step after a prefill of its patches and prompts,
+    against the prefill's last-position logits over the patches, the
+    prompts and that token, at full width and depth: the prefix must
+    carry through the cache (its P positions written, ``pos`` = P + S
+    after the prefill and P + S + 1 after the step).  In float32 compute
+    (the same f32 weights, no copy) within ``DECODE_TOL`` relative
+    L2; the bf16 figure is printed beside it, not a gate."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+
+    dev = torch.device("cuda")
+    cfg, model = served["cfg"], served["model"]
+    toks = torch.as_tensor(served["prompts"]).to(dev)
+    patches = torch.as_tensor(served["extra"]["patches"]).to(dev)
+    nxt = torch.as_tensor(served["outs"]["step"][:, :1]).to(dev)
+    p, s = patches.shape[1], toks.shape[1]
+    rows = {}
+    for tag in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, compute_dtype=tag)
+        _, cache = prefill(model, c, {"tokens": toks, "patches": patches},
+                           p + s + 1)
+        pos = int(cache["pos"])
+        dec, cache = decode_step(model, c, cache, nxt)
+        after = int(cache["pos"])
+        del cache
+        full = prefill(model, c, {"tokens": torch.cat([toks, nxt], dim=1),
+                                  "patches": patches}, p + s + 1)[0]
+        dec, full = dec.double(), full.double()
+        d = dec - full
+        rows[tag] = {"rel_l2": (d.norm() / full.norm()).item(),
+                     "max_abs_err": d.abs().max().item(),
+                     "max_abs_logit": full.abs().max().item(),
+                     "finite": bool(torch.isfinite(dec).all()),
+                     "pos_after_prefill": pos, "pos_after_decode": after}
+        del dec, full, d
+        torch.cuda.empty_cache()
+    r32 = rows["float32"]
+    check(r32["finite"] and r32["rel_l2"] <= DECODE_TOL,
+          f"{cfg.name}: the f32 decode step after the prefix is {r32} from "
+          f"the full-sequence path (bar: relative L2 {DECODE_TOL})")
+    check(all(r["pos_after_prefill"] == p + s
+              and r["pos_after_decode"] == p + s + 1 for r in rows.values()),
+          f"{cfg.name}: cache positions {rows} (want {p + s} after the "
+          f"prefill of {p} patches and {s} tokens, then {p + s + 1})")
+    report["vision_serving"]["prefix_decode"] = rows
+    for tag, r in rows.items():
+        print(f"  decode after the prefix vs full sequence ({p} patches + "
+              f"{s} tokens + 1), {tag} compute: relative L2 "
+              f"{r['rel_l2']:.4g}, max_abs_err {r['max_abs_err']:.4g} (max "
+              f"|logit| {r['max_abs_logit']:.4g}); cache pos "
+              f"{r['pos_after_prefill']} -> {r['pos_after_decode']}"
+              + (f"; bar {DECODE_TOL}" if tag == "float32"
+                 else "; not a gate"), flush=True)
+
+
 def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
                       shape):
     """A model served through ``generate`` only (the ``ssm``, ``hybrid``
     and MLA families) at its published width through ``ServeEngine`` on
     the card: random f32 weights from a seeded generator, bf16 compute;
-    ``generate`` in every decode mode (identical greedy tokens), each
+    ``generate`` in every decode mode (identical greedy tokens; the vision
+    stub's patches drawn from the prompts' stream), each
     prefill launching every kernel of ``per_prefill`` that many times
     (0: never); ``generate_many`` raises, as the reference's does; where
     a prefill launches a kernel, the prefill logits with the kernels
@@ -1178,6 +1322,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.kernels import build
     from repro_torch.models import CallConfig, init_params, prefill
+    from repro_torch.models.model import prefix_tokens
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.engine import build_sampling_step
 
@@ -1201,10 +1346,15 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     print(f"  init: {got_params} parameters, {param_bytes} B on the card in "
           f"{init_s:.2f} s", flush=True)
 
-    prompts = SyntheticStream(DataConfig(
+    ex = SyntheticStream(DataConfig(
         vocab_size=cfg.vocab_size, batch_size=st["batch"],
-        seq_len=st["prompt_len"], seed=0), cfg).batch(0)["tokens"]
-    max_len = st["prompt_len"] + st["new_tokens"] + 1
+        seq_len=st["prompt_len"], seed=0), cfg).batch(0)
+    prompts = ex["tokens"]
+    # the vision stub's precomputed patches, drawn with the prompts (as the
+    # serve CLI draws them); their positions come first in the cache
+    extra = {k: v for k, v in ex.items() if k == "patches"}
+    prefix = prefix_tokens(cfg)
+    max_len = prefix + st["prompt_len"] + st["new_tokens"] + 1
 
     # -- the main path, counted ------------------------------------------
     outs, stats, wall = {}, {}, {}
@@ -1215,7 +1365,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
             batch=st["batch"], max_len=max_len, decode_mode=mode,
             decode_chunk=st["decode_chunk"]))
         t0 = time.perf_counter()
-        outs[mode] = eng.generate(prompts, st["new_tokens"])
+        outs[mode] = eng.generate(prompts, st["new_tokens"], extra or None)
         torch.cuda.synchronize()
         wall[mode] = time.perf_counter() - t0
         stats[mode] = dict(eng.stats)
@@ -1253,17 +1403,19 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
 
     # -- prefill with the kernels against the plain versions --------------
     toks = torch.as_tensor(prompts).to(dev)
+    batch = dict({k: torch.as_tensor(v).to(dev) for k, v in extra.items()},
+                 tokens=toks)
     kernels = any(per_prefill.values())
     calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl,
                               moe_no_drop=True)
              for impl in (("kernel", "plain") if kernels else ("auto",))}
-    prefill_cmp = (prefill_vs_plain(check, cfg, model, toks, max_len)
+    prefill_cmp = (prefill_vs_plain(check, cfg, model, batch, max_len)
                    if kernels else {})
 
     def prefill_s(impl):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        prefill(model, cfg, {"tokens": toks}, max_len, calls[impl])
+        prefill(model, cfg, batch, max_len, calls[impl])
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1276,9 +1428,9 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     main_impl = "kernel" if kernels else "auto"
     n_steps, n_prof = 16, 3
     # room for every step timed below (the hybrid's K/V bound the position)
-    steps_len = max(max_len, st["prompt_len"] + n_steps + n_prof + 4)
-    _, cache = prefill(model, cfg, {"tokens": toks}, steps_len,
-                       calls[main_impl])
+    steps_len = max(max_len, prefix + st["prompt_len"] + n_steps + n_prof
+                    + 4)
+    _, cache = prefill(model, cfg, batch, steps_len, calls[main_impl])
     step = build_sampling_step(model, cfg, 0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
     tok = toks[:, -1:]
@@ -1307,7 +1459,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
         tok, cache = step(cache, tok, gen)
 
     busy = {"prefill": device_busy(
-                lambda: prefill(model, cfg, {"tokens": toks}, max_len,
+                lambda: prefill(model, cfg, batch, max_len,
                                 calls[main_impl]), 1),
             "decode_step": device_busy(step_once, n_prof)}
     for what, b in busy.items():
@@ -1322,16 +1474,17 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
         "stats": stats, "prefill_ms": prefill_ms, "prefill_runs_s": runs,
         "decode_ms_per_step": decode_ms, "prefill_logits": prefill_cmp,
         "busy": busy, "max_memory_allocated": peak, "launches": launches,
-        "per_prefill": per_prefill, "tokens_row0": outs["step"][0].tolist()}
-    del cache
+        "per_prefill": per_prefill, "prefix_tokens": prefix,
+        "tokens_row0": outs["step"][0].tolist()}
+    del cache, batch
     torch.cuda.empty_cache()
     return {"launches": launches, "cfg": cfg, "model": model,
-            "prompts": prompts, "outs": outs, "static": st,
+            "prompts": prompts, "extra": extra, "outs": outs, "static": st,
             "max_len": max_len, "param_bytes": param_bytes}
 
 
-def prefill_vs_plain(check, cfg, model, toks, max_len):
-    """The last-position prefill logits of ``toks`` with the kernels
+def prefill_vs_plain(check, cfg, model, batch, max_len):
+    """The last-position prefill logits of ``batch`` with the kernels
     against the plain versions, in bf16 and in f32 compute (the same f32
     weights), within ``PREFILL_TOL``; routing without drops, as the
     engine's prefill routes.  Returns the errors by compute dtype."""
@@ -1344,8 +1497,7 @@ def prefill_vs_plain(check, cfg, model, toks, max_len):
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     rows = {}
     for tag, c in (("bfloat16", cfg), ("float32", f32)):
-        lg = {impl: prefill(model, c, {"tokens": toks}, max_len,
-                            call)[0].double()
+        lg = {impl: prefill(model, c, batch, max_len, call)[0].double()
               for impl, call in calls.items()}
         torch.cuda.synchronize()
         lp = lg["plain"]
@@ -1354,7 +1506,8 @@ def prefill_vs_plain(check, cfg, model, toks, max_len):
                "kernel": {"max_abs_err": d.abs().max().item(),
                           "rel_l2": (d.norm() / lp.norm()).item()}}
         tol = PREFILL_TOL[tag]
-        ok = (lg["kernel"].shape == (toks.shape[0], 1, cfg.vocab_size)
+        ok = (lg["kernel"].shape == (batch["tokens"].shape[0], 1,
+                                     cfg.vocab_size)
               and bool(torch.isfinite(lg["kernel"]).all()))
         if "rel_l2" in tol:
             ok = ok and row["kernel"]["rel_l2"] <= tol["rel_l2"]
@@ -2317,7 +2470,8 @@ def graphs_phase(check, report, served):
        ``GRAPH_STEPS`` steps a pass; the device busy share of each
        (``torch.profiler``); capture seconds, the graphs' pool bytes and
        their nodes (read from libcuda); the bytes a step must move
-       (every weight it reads once, the cache once) over 3.35 TB/s."""
+       (every weight it reads once, the cache once) over 3.35 TB/s, and
+       the same with the per-use casts' bf16 copies written and read."""
     import numpy as np
     import torch
     from repro_torch.core import graphs
@@ -2328,6 +2482,7 @@ def graphs_phase(check, report, served):
     dev = torch.device("cuda")
     cfg, model, prompts, st = (served["cfg"], served["model"],
                                served["prompts"], served["static"])
+    extra = served.get("extra") or None
     print(f"== graphs: {cfg.name} decode, captured vs eager", flush=True)
     out = report.setdefault("graphs_decode", {})[cfg.name] = {}
 
@@ -2338,7 +2493,7 @@ def graphs_phase(check, report, served):
 
     eng = engine()
     eng.graphs = eager_programs(eng.device)
-    eager = eng.generate(prompts, st["new_tokens"])
+    eager = eng.generate(prompts, st["new_tokens"], extra)
     for mode, toks in served["outs"].items():
         check(np.array_equal(toks, eager),
               f"graphs {cfg.name}: captured {mode} tokens differ from the "
@@ -2358,8 +2513,8 @@ def graphs_phase(check, report, served):
                      seed=GRAPH_TEMP["seed"])
         if not captured:
             eng.graphs = eager_programs(eng.device)
-        temp[(mode, captured)] = eng.generate(prompts,
-                                              GRAPH_TEMP["new_tokens"])
+        temp[(mode, captured)] = eng.generate(
+            prompts, GRAPH_TEMP["new_tokens"], extra)
     check(all(np.array_equal(t, temp[("step", False)])
               for t in temp.values()),
           f"graphs {cfg.name}: seeded draws differ between captured and "
@@ -2372,15 +2527,18 @@ def graphs_phase(check, report, served):
 
     # -- decode ms: eager body, captured step, captured chunk -------------
     b, c, n = st["batch"], st["decode_chunk"], GRAPH_STEPS
-    max_len = st["prompt_len"] + 8 * n + 16
+    # the prompts (and the vision stub's prefix) and every step timed below
+    max_len = (served["max_len"] - st["new_tokens"] - 1) + 8 * n + 16
     toks = torch.as_tensor(prompts).to(dev)
     step_eng = engine(max_len=max_len)
-    step_eng.generate(prompts, 2)                # captures the step graph
+    step_eng.generate(prompts, 2, extra)         # captures the step graph
     chunk_eng = engine(max_len=max_len, decode_mode="chunk")
-    chunk_eng.generate(prompts, c + 1)           # captures the chunk graph
+    chunk_eng.generate(prompts, c + 1, extra)    # captures the chunk graph
     g_step = step_eng.graphs.get(("step", b, max_len, 1, 0.0))
     g_chunk = chunk_eng.graphs.get(("chunk", b, max_len, c, 0.0))
-    _, cache = prefill(model, cfg, {"tokens": toks}, max_len)
+    batch = dict({k: torch.as_tensor(v).to(dev)
+                  for k, v in (extra or {}).items()}, tokens=toks)
+    _, cache = prefill(model, cfg, batch, max_len)
     step = build_sampling_step(model, cfg, 0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
     tok = toks[:, -1:]
@@ -2422,6 +2580,15 @@ def graphs_phase(check, report, served):
               (cfg.vocab_size - b) * cfg.d_model * model.embed.element_size())
     read_bytes = served["param_bytes"] - unread + cache_bytes
     bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
+    # with the per-use casts: each matrix a step casts is also written and
+    # read again in the compute dtype (2 + 2 bytes an element); the f32
+    # router is used as it is, the embedding gathered (a tied one is the
+    # head, cast whole)
+    cast_bytes = sum(
+        p.numel() * 2 * 2 for name, p in model.named_parameters()
+        if p.ndim >= 2 and not name.endswith("router")
+        and (name != "embed" or cfg.tie_embeddings))
+    casts_ms = (read_bytes + cast_bytes) / HBM_BYTES_PER_S * 1e3
     out.update({"tokens_equal": True, "decode_ms_per_step": ms,
                 "runs_ms": runs, "busy": busy, "census": census,
                 "capture_s": {"step graph": g_step.capture_s,
@@ -2429,6 +2596,7 @@ def graphs_phase(check, report, served):
                 "pool_bytes": {"step graph": g_step.pool_bytes,
                                "chunk graph": g_chunk.pool_bytes},
                 "bound_ms": bound_ms, "read_bytes": read_bytes,
+                "bound_with_casts_ms": casts_ms, "cast_bytes": cast_bytes,
                 "max_len": max_len, "param_bytes": served["param_bytes"],
                 "cache_bytes": cache_bytes})
     for k in sides:
@@ -2445,10 +2613,11 @@ def graphs_phase(check, report, served):
         print(f"  {k}: capture {g.capture_s:.3f} s, pool {g.pool_bytes} B, "
               f"nodes {census[k]}", flush=True)
     print(f"  a step must move {read_bytes} B (every f32 weight it reads "
-          f"once, the cache once): {bound_ms:.3f} ms at 3.35 TB/s; the "
-          f"captured step at {bound_ms / ms['step graph']:.3f} of that "
-          f"bound", flush=True)
-    del cache, step_eng, chunk_eng, g_step, g_chunk
+          f"once, the cache once): {bound_ms:.3f} ms at 3.35 TB/s; with the "
+          f"per-use casts {read_bytes + cast_bytes} B, {casts_ms:.3f} ms; the "
+          f"captured step at {bound_ms / ms['step graph']:.3f} and "
+          f"{casts_ms / ms['step graph']:.3f} of these bounds", flush=True)
+    del cache, batch, step_eng, chunk_eng, g_step, g_chunk
     torch.cuda.empty_cache()
 
 
@@ -3052,10 +3221,16 @@ def main() -> int:
     moe_launches = moe_serving_phase(check, report)
     torch.cuda.empty_cache()
 
-    # -- 10. what the main paths launched, and the result lines --------------
+    # -- 10. the modality frontends: paligemma-3b (the vision prefix, plain
+    #        attention), then musicgen-large (the flash kernel at head dim 64)
+    frontend_launches = frontend_serving_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 11. what the main paths launched, and the result lines --------------
     launches["flash_attention"] = (serve_launches["flash_attention"]
                                    + hybrid_launches["flash_attention"]
-                                   + moe_launches["flash_attention"])
+                                   + moe_launches["flash_attention"]
+                                   + frontend_launches["flash_attention"])
     launches["ssm_scan"] = (ssm_launches["ssm_scan"]
                             + hybrid_launches["ssm_scan"])
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())

@@ -6,9 +6,14 @@
 Runs on the card (``--device cuda``, the default, which raises without
 one); ``--device cpu`` serves on the CPU with the plain attention.  Every
 family the port builds serves through ``generate`` (e.g. ``--arch
-zamba2-2.7b``, the hybrid family); ``--continuous`` needs the plain
-attention family and raises for the ssm and hybrid ones, as the
-reference's CLI does.
+zamba2-2.7b``, the hybrid family; ``--arch paligemma-3b``, whose
+precomputed patches are drawn from the same stream as the prompts);
+``--continuous`` needs the plain attention family and raises for the
+ssm, hybrid and MLA models and the frontends, as the reference's CLI
+does.  The cache holds the vision stub's patches before the prompt, so
+its length is ``n_prefix_tokens + --prompt-len + --new-tokens + 1``
+(the reference's leaves the patches out and its paligemma-3b prefill
+fails to fit its cache).
 Continuous batching (variable-length requests streamed into the fixed
 decode batch under a Poisson-ish arrival trace):
 
@@ -38,6 +43,7 @@ from repro_torch.core.fabric import FabricScheduler
 from repro_torch.core.policy import Staging
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.models import get, init_params, reduced
+from repro_torch.models.model import prefix_tokens
 from repro_torch.serve import ServeConfig, ServeEngine, ServeTenant
 from repro_torch.serve.engine import resolve_device
 
@@ -62,6 +68,18 @@ def _continuous_trace(args, cfg):
     return continuous_trace(args.requests, max(2, args.prompt_len // 2),
                             args.prompt_len, args.new_tokens,
                             args.arrival_rate, cfg.vocab_size, args.seed)
+
+
+def _prompts(args, cfg):
+    """The prompts of ``--batch`` x ``--prompt-len`` tokens and the
+    frontend's extra inputs (the vision stub's ``patches``; ``None`` for
+    every other model), drawn from the stream as the reference's CLI
+    draws them."""
+    ex = SyntheticStream(
+        DataConfig(vocab_size=cfg.vocab_size, batch_size=args.batch,
+                   seq_len=args.prompt_len, seed=args.seed), cfg).batch(0)
+    extra = {k: v for k, v in ex.items() if k == "patches"}
+    return ex["tokens"], extra or None
 
 
 def main(argv=None) -> None:
@@ -109,7 +127,8 @@ def main(argv=None) -> None:
     host = init_params(cfg, generator=torch.Generator().manual_seed(args.seed),
                        device="cpu")
     scfg = ServeConfig(batch=args.batch,
-                       max_len=args.prompt_len + args.new_tokens + 1,
+                       max_len=(prefix_tokens(cfg) + args.prompt_len
+                                + args.new_tokens + 1),
                        temperature=args.temperature, seed=args.seed,
                        decode_mode=args.decode_mode,
                        decode_chunk=args.decode_chunk,
@@ -142,13 +161,10 @@ def main(argv=None) -> None:
                   f"-> {outs[r][:12].tolist()}")
         return
 
-    stream = SyntheticStream(
-        DataConfig(vocab_size=cfg.vocab_size, batch_size=args.batch,
-                   seq_len=args.prompt_len, seed=args.seed), cfg)
-    prompts = stream.batch(0)["tokens"]
+    prompts, extra = _prompts(args, cfg)
     sync()
     t0 = time.time()
-    out = engine.generate(prompts, args.new_tokens)
+    out = engine.generate(prompts, args.new_tokens, extra)
     dt = time.time() - t0
     total = args.batch * args.new_tokens
     print(f"[serve] generated {total} tokens on {device} in {dt:.2f}s "
@@ -175,10 +191,8 @@ def _serve_fabric(args, cfg, host, scfg, device, sync) -> None:
         head = f"continuous, {args.requests} requests"
         samples = [o[:12].tolist() for o in outs[:2]]
     else:
-        stream = SyntheticStream(
-            DataConfig(vocab_size=cfg.vocab_size, batch_size=args.batch,
-                       seq_len=args.prompt_len, seed=args.seed), cfg)
-        out = tenant.generate(stream.batch(0)["tokens"], args.new_tokens)
+        prompts, extra = _prompts(args, cfg)
+        out = tenant.generate(prompts, args.new_tokens, extra)
         dt = time.time() - t0
         total = args.batch * args.new_tokens
         head = f"batch {args.batch}"

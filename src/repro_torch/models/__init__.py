@@ -1,9 +1,9 @@
 """The model path of the port: the dense GQA transformer, the MoE family
-(with GQA, or with DeepSeek-V2's MLA attention), the Mamba-1 SSM and the
-Mamba-2 hybrid with Zamba2's shared attention block (twin of
-``repro.models``, restricted to what is ported; ``loss_fn`` comes with
-training, ROADMAP.md Queue 1 item 6, the modality frontends with item
-5)."""
+(with GQA, or with DeepSeek-V2's MLA attention), the Mamba-1 SSM, the
+Mamba-2 hybrid with Zamba2's shared attention block, and the stub modality
+frontends (PaliGemma's vision prefix, MusicGen's audio tokens) — twin of
+``repro.models``; ``loss_fn`` comes with training, ROADMAP.md Queue 1
+item 6."""
 
 from repro_torch.models.config import (
     FrontendConfig, HybridConfig, MLAConfig, MoEConfig, ModelConfig, SSMConfig,

@@ -1,20 +1,22 @@
 """Attention: GQA + RoPE (+ QKV bias) — twin of ``repro.models.attention``.
 
-Four implementations behind one switch (``impl``):
+Five implementations behind one switch (``impl``):
   * "plain"   — dense masked attention written here (the twin of "xla");
   * "chunked" — online softmax over KV chunks in plain torch: O(S·chunk)
                 memory;
   * "kernel"  — the hand-written CUDA flash-attention kernel through
                 ``kernels.ops.attention`` (the twin of "pallas"); CUDA
                 tensors only, and it raises for a prefix-LM mask;
+  * "stub"    — the reference's flash-substitution measurement stub: the
+                mean of V over the sequence, plus 1e-6 of q's mean over
+                its head dim, at every query row (attention's shapes at
+                negligible work; it launches no kernel);
   * "auto"    — "kernel" for a flash call on CUDA tensors (q, k and v of
                 one head dim, no prefix mask), "plain" otherwise: on the
                 CPU, for MLA's q/k of nope + rope with v of
                 ``v_head_dim``, and for a prefix-LM mask.  A head dim the
                 kernel is not built for stays "kernel" and raises.
-The reference's "stub" (the flash-substitution measurement) comes with
-``launch/flashsub.py``.  MLA (DeepSeek-V2's low-rank KV compression) is at
-the end of the file.
+MLA (DeepSeek-V2's low-rank KV compression) is at the end of the file.
 
 Decode (one query token against a cache) is a separate path in plain
 torch, on the card too, as the reference keeps it always-XLA: it is a
@@ -39,7 +41,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_norm
 
 NEG_INF = -1e30
-IMPLS = ("plain", "chunked", "kernel", "auto")
+IMPLS = ("plain", "chunked", "kernel", "stub", "auto")
 
 Params = Mapping[str, torch.Tensor]
 
@@ -64,10 +66,6 @@ def resolve_impl(impl: str, q: torch.Tensor,
     """``impl`` with "auto" decided: "kernel" for a flash call on CUDA
     tensors (:func:`kernel_takes`), else "plain"; "kernel", chosen or
     resolved, raises where the kernel refuses the shapes."""
-    if impl == "stub":
-        raise NotImplementedError(
-            "attn_impl='stub' comes with launch/flashsub.py "
-            "(ROADMAP.md Queue 1 item 5, with item 7)")
     if impl not in IMPLS:
         raise ValueError(f"attn impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
@@ -116,6 +114,17 @@ def _plain_attention(q, k, v, mask) -> torch.Tensor:
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p,
                         v.to(torch.float32)).to(q.dtype)
+
+
+def _stub_attention(q, v) -> torch.Tensor:
+    """The reference's measurement stub (``multihead_attention(impl=
+    "stub")``): the mean of v over the sequence plus 1e-6 × the mean of q
+    (in v's dtype) over its head dim, broadcast to q's rows with v's head
+    dim, in q's dtype.  It keeps attention's shapes at negligible work, so
+    a run with it measures everything but attention."""
+    o = v.mean(dim=2, keepdim=True) + 1e-6 * q.to(v.dtype).mean(
+        dim=-1, keepdim=True)
+    return o.expand(*q.shape[:3], v.shape[-1]).to(q.dtype)
 
 
 def _chunked_attention(q, k, v, *, prefix_len: int,
@@ -167,6 +176,8 @@ def multihead_attention(
         # the kernel indexes KV head h // rep: nothing is repeated
         return kops.attention(q, k, v, causal=True, impl="kernel")
     k, v = _repeat_kv(k, v, q.shape[1])
+    if impl == "stub":
+        return _stub_attention(q, v)
     if impl == "chunked":
         return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk)
     mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)

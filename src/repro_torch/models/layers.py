@@ -51,10 +51,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
     """MusicGen-style sinusoidal embeddings.  positions: (..., S) -> (..., S, D)."""
     half = d_model // 2
-    # made on the positions' device: no host-to-device copy in a decode
-    # step that a CUDA graph captures
-    freqs = torch.exp(-torch.log(torch.tensor(
-        10000.0, device=positions.device)) * torch.arange(
+    # filled on the positions' device (``torch.tensor`` would copy from
+    # the host, which a CUDA graph capturing a decode step refuses)
+    base = torch.full((), 10000.0, dtype=torch.float32,
+                      device=positions.device)
+    freqs = torch.exp(-torch.log(base) * torch.arange(
         half, dtype=torch.float32, device=positions.device) / half)
     angles = positions[..., None].to(torch.float32) * freqs
     return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)

@@ -1,7 +1,8 @@
 """Model assembly: init / forward / prefill / decode — twin of
-``repro.models.model`` for the dense, the MoE (with GQA or with
-DeepSeek-V2's MLA attention), the SSM (Mamba-1) and the hybrid (Mamba-2 +
-Zamba2's shared attention block) families.
+``repro.models.model`` for every family of the registry: the dense, the
+MoE (with GQA or with DeepSeek-V2's MLA attention), the SSM (Mamba-1), the
+hybrid (Mamba-2 + Zamba2's shared attention block) and the two stub
+modality frontends (PaliGemma's vision prefix, MusicGen's audio tokens).
 
 The model is an ``nn.Module`` (:class:`Transformer`): the embedding, an
 ``nn.ModuleList`` of layers (a decoder layer — GQA or MLA attention, a
@@ -20,8 +21,14 @@ after every ``period``-th layer) a Python test on the loop's index; every
 entry point is a function of (model, tensors), with the device taken from
 the model.
 
-The modality frontends (the vlm and audio families) raise
-:class:`NotImplementedError` naming the ROADMAP item that brings them.
+The frontends are stubs, as in the reference, and hold no weights: the
+vision stub (``vlm``, PaliGemma) takes precomputed patch embeddings
+``batch["patches"]`` (B, P, d_model) and puts them before the token
+embeddings, attended bidirectionally (the prefix-LM mask); the audio stub
+(``audio``, MusicGen) is a decoder over codec tokens with sinusoidal
+positions and adds nothing to the embedding.  A configuration that mixes
+families the reference never combines (a frontend or MoE layers on the
+state-space families) raises :class:`NotImplementedError`.
 Of ``CallConfig``'s fields, the reference's sharding knobs
 (``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) have no
 meaning on one device and ``attn_chunk_remat`` none without a backward
@@ -50,10 +57,12 @@ from repro_torch.models.layers import (
 
 Cache = Dict[str, Any]
 
-#: where each family the port cannot build yet comes from
-_WAITS = "ROADMAP.md Queue 1 item 5"
-_BUILDS = ("the port builds the dense, moe (GQA or MLA), ssm and hybrid "
-           "families; the vlm and audio frontends are next")
+#: what the port builds, and the ROADMAP item that comes next
+_WAITS = "ROADMAP.md Queue 1 item 6 (training) is next"
+_BUILDS = ("the port builds every family of the registry: dense, moe (GQA "
+           "or MLA), ssm, hybrid, and the vlm and audio frontends on "
+           "decoder layers")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -61,13 +70,14 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise for every configuration the port cannot build yet: it builds
-    the dense family, the ``moe`` family (with GQA or MLA attention), the
-    ``ssm`` family (Mamba-1) and the ``hybrid`` family (Mamba-2 with a
-    shared attention block); the modality frontends are still to come."""
-    parts: Tuple[Tuple[str, Any], ...] = (("frontend", cfg.frontend),)
+    """Raise for a configuration that mixes families the port does not
+    combine: the state-space families (``ssm``, ``hybrid``) take no MoE,
+    MLA or frontend part, only the ``hybrid`` family a shared block, and
+    each its own Mamba version."""
+    parts: Tuple[Tuple[str, Any], ...] = ()
     if cfg.family in ("ssm", "hybrid"):
-        parts += (("moe", cfg.moe), ("mla", cfg.mla))
+        parts += (("moe", cfg.moe), ("mla", cfg.mla),
+                  ("frontend", cfg.frontend))
     if cfg.family != "hybrid":
         parts += (("hybrid", cfg.hybrid),)
     version = {"ssm": 1, "hybrid": 2}.get(cfg.family)
@@ -81,12 +91,21 @@ def require_ported(cfg: ModelConfig) -> None:
     for what, present in parts:
         if present is not None:
             raise NotImplementedError(
-                f"{cfg.name}: the {what} part of the model is not ported "
-                f"yet (it comes with {_WAITS}); {_BUILDS}")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+                f"{cfg.name}: the {what} part of a {cfg.family} model is not "
+                f"ported; {_BUILDS} ({_WAITS})")
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (it comes "
-            f"with {_WAITS}); {_BUILDS}")
+            f"{cfg.name}: family {cfg.family!r} is not ported; {_BUILDS} "
+            f"({_WAITS})")
+
+
+def prefix_tokens(cfg: ModelConfig) -> int:
+    """The positions the vision stub's patches take before the prompt
+    (``frontend.n_prefix_tokens``; 0 for every other model): a cache for
+    a prompt of S tokens needs P + S positions before the first decode
+    step."""
+    fe = cfg.frontend
+    return fe.n_prefix_tokens if fe and fe.kind == "vision_stub" else 0
 
 
 def shared_config(cfg: ModelConfig) -> ModelConfig:
@@ -296,9 +315,10 @@ def _tree(module: nn.Module, dtype: Optional[torch.dtype]
 
 class Transformer(nn.Module):
     """A decoder-only model at ``cfg``'s widths: a dense or MoE
-    transformer (GQA or MLA attention), a stack of Mamba-1 layers for the
-    ``ssm`` family, or a stack of Mamba-2 layers with one shared attention
-    block for the ``hybrid`` family."""
+    transformer (GQA or MLA attention; the ``vlm`` and ``audio`` families
+    are dense transformers whose stub frontends hold no weights), a stack
+    of Mamba-1 layers for the ``ssm`` family, or a stack of Mamba-2 layers
+    with one shared attention block for the ``hybrid`` family."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -464,16 +484,25 @@ def _embed_tokens(model: Transformer, cfg: ModelConfig,
 def embed_inputs(model: Transformer, cfg: ModelConfig,
                  batch: Mapping[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """-> (x, positions, prefix_len)."""
+    """-> (x, positions, prefix_len).  The vision stub's precomputed
+    patches (``batch["patches"]``, (B, P, d_model)) go before the token
+    embeddings, cast to the compute dtype and not scaled; the positions
+    run over P + S and ``prefix_len`` is P (0 for every other model)."""
     dt = _dtype(cfg.compute_dtype)
     tokens = torch.as_tensor(batch["tokens"], device=model.device)
     x = _embed_tokens(model, cfg, tokens)
+    prefix_len = 0
+    if cfg.frontend and cfg.frontend.kind == "vision_stub":
+        patches = torch.as_tensor(batch["patches"],
+                                  device=model.device).to(dt)
+        x = torch.cat([patches, x], dim=1)
+        prefix_len = patches.shape[1]
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device).expand(b, s)
     if cfg.pos_embedding == "sinusoidal":
         x = x + sinusoidal_positions(positions, cfg.d_model).to(dt)
-    return x, positions, 0
+    return x, positions, prefix_len
 
 
 def unembed(model: Transformer, cfg: ModelConfig,
@@ -660,7 +689,9 @@ def prefill(model: Transformer, cfg: ModelConfig,
     ``max_len``) the prompt is written into it, in place; otherwise into a
     new one.  The ``ssm`` family's cache holds no positions, so
     ``max_len`` does not bound its prompt (as in the reference); the
-    ``hybrid`` family's shared block keeps K/V, so it does."""
+    ``hybrid`` family's shared block keeps K/V, so it does.  The vision
+    stub's patches take the first P positions of the cache, and its
+    ``pos`` is P + S."""
     require_ported(cfg)
     x, positions, prefix_len = embed_inputs(model, cfg, batch)
     b, s = x.shape[0], x.shape[1]

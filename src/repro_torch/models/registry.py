@@ -4,9 +4,8 @@ reference's, field for field).
 
 ``count_params`` counts from the port's own ``init_params`` on the ``meta``
 device (shapes only, nothing allocated) in place of ``jax.eval_shape``.
-The port builds the dense, moe (GQA or MLA), ssm and hybrid families so
-far; counting a frontend family (vlm, audio) raises
-:class:`NotImplementedError`, as building it does.
+The port builds every family listed here, the stub frontends of
+paligemma-3b and musicgen-large included (they hold no weights).
 """
 
 from __future__ import annotations

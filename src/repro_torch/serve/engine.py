@@ -48,9 +48,11 @@ and the modality frontends.  ``generate`` serves the ``ssm`` family
 (falcon-mamba) with its state cache (``conv``, ``h``, ``pos``), the
 ``hybrid`` family (zamba2) with its state cache and the shared block's
 K/V, one slot per application (``conv``, ``h``, ``k``, ``v``, ``pos``),
-and MLA (deepseek-v2-lite) with its compressed cache (``c``, ``krope``,
-``pos``).  MoE layers route without drops in every serving program
-(``SERVE_CALL``), as the reference's do.
+MLA (deepseek-v2-lite) with its compressed cache (``c``, ``krope``,
+``pos``), and the frontends: the vision stub's patches come in
+``extra_inputs`` and take the cache's first positions (paligemma), the
+audio stub needs none (musicgen).  MoE layers route without drops in
+every serving program (``SERVE_CALL``), as the reference's do.
 
 Sampling: temperature sampling draws from a ``torch.Generator`` seeded with
 ``ServeConfig.seed`` on each call (Gumbel-max over ``logits /
@@ -87,7 +89,7 @@ from repro_torch.core.policy import Staging, TenantKind, coerce_enum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     CallConfig, Transformer, decode_step, decode_step_ragged, init_cache,
-    prefill,
+    prefill, prefix_tokens,
 )
 
 
@@ -322,35 +324,54 @@ class ServeEngine:
 
     # -- generation ---------------------------------------------------------------
 
-    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 extra_inputs: Optional[Dict[str, np.ndarray]] = None
+                 ) -> np.ndarray:
         """prompts: (b, S_prompt) int32 -> (b, n_new) generated ids.
 
         ``b`` may be any size up to the configured batch: a sub-batch is
-        padded to ``scfg.batch`` (repeating the last prompt row) and the
-        output sliced back.  Batch rows are computed independently (MoE
-        routing without drops included), so padding does not change the
-        real rows' tokens.  (The reference's ``extra_inputs`` feed the
-        modality frontends, which come with ROADMAP.md Queue 1 item 5.)
+        padded to ``scfg.batch`` (repeating the last prompt row, and the
+        last row of every extra input) and the output sliced back.  Batch
+        rows are computed independently (MoE routing without drops
+        included), so padding does not change the real rows' tokens.
+        ``extra_inputs`` feed the modality frontends: ``{"patches": (b, P,
+        d_model)}`` for the vision stub, whose P positions come before the
+        prompt's in the cache.  A prefill longer than ``scfg.max_len``
+        raises :class:`ValueError`.
         """
         model = self._model()
         prompts = np.asarray(prompts)
+        extra = {k: np.asarray(v) for k, v in (extra_inputs or {}).items()}
         b = prompts.shape[0]
         if b > self.scfg.batch:
             raise ValueError(
                 f"batch {b} exceeds configured batch {self.scfg.batch}")
+        prefix = (extra["patches"].shape[1] if prefix_tokens(self.cfg)
+                  and "patches" in extra else 0)
+        length = prefix + prompts.shape[1]
+        if self.cfg.family != "ssm" and length > self.scfg.max_len:
+            raise ValueError(
+                f"a prefill of {length} positions ({prefix} prefix + "
+                f"{prompts.shape[1]} prompt tokens) exceeds the engine's "
+                f"max_len {self.scfg.max_len}")
         if b < self.scfg.batch:
             pad = self.scfg.batch - b
             self.stats["batch_padded_rows"] += pad
-            prompts = np.concatenate(
-                [prompts, np.broadcast_to(
-                    prompts[-1:], (pad,) + prompts.shape[1:])], axis=0)
+
+            def padded(a):
+                return np.concatenate(
+                    [a, np.broadcast_to(a[-1:], (pad,) + a.shape[1:])],
+                    axis=0)
+            prompts = padded(prompts)
+            extra = {k: padded(v) for k, v in extra.items()}
         mode = self.scfg.decode_mode
         if mode not in ("host", "step", "chunk"):
             raise ValueError(f"decode_mode {mode!r} not in host/step/chunk")
-        tokens = torch.as_tensor(prompts).to(self.device)
+        batch = {k: torch.as_tensor(v).to(self.device)
+                 for k, v in dict(extra, tokens=prompts).items()}
         state = self._state()
-        logits, _ = prefill(model, self.cfg, {"tokens": tokens},
-                            self.scfg.max_len, self.call, cache=state.cache)
+        logits, _ = prefill(model, self.cfg, batch, self.scfg.max_len,
+                            self.call, cache=state.cache)
         if mode == "host":
             out = self._generate_host_loop(model, logits, state, n_new)
         else:
@@ -713,11 +734,13 @@ class ServeTenant:
             except LeaseUnavailable:
                 pass
 
-    def generate(self, prompts: np.ndarray, n_new: int) -> np.ndarray:
+    def generate(self, prompts: np.ndarray, n_new: int,
+                 extra_inputs: Optional[Dict[str, np.ndarray]] = None
+                 ) -> np.ndarray:
         """One decode burst: grow the lease, generate, shrink back."""
         self._grow()
         try:
-            return self._engine().generate(prompts, n_new)
+            return self._engine().generate(prompts, n_new, extra_inputs)
         finally:
             self._shrink()
 

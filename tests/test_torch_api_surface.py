@@ -86,7 +86,8 @@ SAME = (
     "PerfFinding.to_payload", "PerfFinding.from_payload", "StepWatchdog",
     "StepWatchdog.deadline", "StepWatchdog.observe", "StepWatchdog.is_late",
     "WatchdogConfig", "BackupOffload", "BackupOffload.run", "ServeTenant",
-    "ServeTenant.generate_many", "ServeTenant.close",
+    "ServeTenant.generate", "ServeTenant.generate_many", "ServeTenant.close",
+    "ServeEngine.generate",
 )
 
 

@@ -245,8 +245,7 @@ def test_impl_switch_on_cpu():
         t_ops.attention(q, k, k, impl="kernel")
     with pytest.raises(ValueError):
         t_attn.multihead_attention(q, k, k, impl="xla")
-    with pytest.raises(NotImplementedError, match="flashsub"):
-        t_attn.multihead_attention(q, k, k, impl="stub")
+    assert t_attn.resolve_impl("stub", q) == "stub"
     with pytest.raises(ValueError, match="multiple"):
         t_ops.attention(q, torch.randn(1, 3, 16, 32), torch.randn(1, 3, 16, 32))
 

@@ -7,7 +7,8 @@ programs as CUDA graphs.  What a capture needs can be held here:
   scalar, the new K/V row written by a device-side index op, attention
   over the whole cache under ``arange(Smax) <= pos`` — against the
   reference's ``prefill``/``decode_step`` logits for a dense (MHA), a GQA,
-  an SSM and a hybrid model (``reduced`` configs in float32 compute, the
+  an SSM, a hybrid and the audio-stub model (musicgen's sinusoidal
+  positions; ``reduced`` configs in float32 compute, the
   reference's weights; one 1-device 32-bit subprocess), and the engine's
   greedy tokens in ``host``/``step``/``chunk`` and through
   ``generate_many`` against the reference engine's;
@@ -46,7 +47,8 @@ JOB_TOL = dict(rtol=1e-9, atol=1e-9)        # tests/test_offload_runtime.py:17
 ARCHS = {"dense": ("smollm-360m", {"n_kv_heads": 4}),
          "gqa": ("yi-9b", {}),
          "ssm": ("falcon-mamba-7b", {}),
-         "hybrid": ("zamba2-2.7b", {})}
+         "hybrid": ("zamba2-2.7b", {}),
+         "audio": ("musicgen-large", {})}
 B, S, MAXLEN, STEPS, NEW, CHUNK = 4, 8, 24, 6, 10, 4
 MANY = dict(batch=2, max_len=24, arrivals=[0, 0, 1, 4])
 CONFIGS = {"baseline": OffloadConfig.baseline(),
@@ -82,7 +84,7 @@ for tag, (arch, kw) in {archs}.items():
                                                      max_len={maxlen}))
     eng.place_params(params)
     out[f"gen_{{tag}}"] = eng.generate(toks, {new})
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") or cfg.frontend:
         continue
     many = {many}
     reqs = [(toks[i, :3 + i], 3 + i) for i in range({b})]
@@ -225,7 +227,7 @@ def test_decode_programs_run_on_meta(tag):
     assert new["pos"].shape == () and new["pos"].device.type == "meta"
     nxt, _ = build_sampling_step(model, cfg, 0.0)(cache, tok, None)
     assert nxt.shape == (B, 1) and nxt.dtype == torch.int32
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") or cfg.frontend:
         return
     pos_b = torch.zeros((B,), dtype=torch.int32, device="meta")
     nxt, pos_b2, _ = build_ragged_step(model, cfg, 0.0)(

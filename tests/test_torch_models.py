@@ -2,7 +2,8 @@
 
 One subprocess (``run_subprocess``, one device, 32-bit) runs the
 reference: every ``layers.py`` function on numpy inputs, ``init_params``'
-tree (names and shapes) for the four dense architectures at full width via
+tree (names and shapes) for the four dense architectures and the two
+frontend ones (paligemma-3b, musicgen-large) at full width via
 ``jax.eval_shape``, ``count_params``, and — for ``reduced(yi-9b)`` and
 ``reduced(smollm-360m)`` — the weights of ``init_params(key(0))`` with
 ``forward``, ``prefill``, ``decode_step`` and ``decode_step_ragged`` on
@@ -30,6 +31,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as TM
 
 DENSE = ["phi3-medium-14b", "qwen1.5-110b", "smollm-360m", "yi-9b"]
+FRONTENDS = ["musicgen-large", "paligemma-3b"]
 SMALL = ["yi-9b", "smollm-360m"]
 F32_TOL = dict(rtol=1e-4, atol=1e-4)        # tests/test_models_smoke.py:65
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
@@ -67,7 +69,7 @@ out["ly_geglu"] = np.asarray(L.gated_mlp(x, wi, wg, wo, "gelu"))
 out["ly_softcap"] = np.asarray(L.softcap(x * 10, 30.0))
 
 # -- the parameter tree and counts at full width
-for arch in {dense}:
+for arch in {full}:
     cfg = M.get(arch)
     key = jax.eval_shape(lambda: jax.random.key(0))
     shapes = jax.eval_shape(lambda k: M.init_params(k, cfg),
@@ -121,6 +123,7 @@ def reference(tmp_path_factory, subproc):
     d = tmp_path_factory.mktemp("models_ref")
     path, meta_path = str(d / "ref.npz"), str(d / "meta.json")
     subproc(_REFERENCE_CODE.format(dense=DENSE, small=SMALL, b=B, s=S,
+                                   full=DENSE + FRONTENDS,
                                    maxlen=MAXLEN, pos_b=POS_B, path=path,
                                    meta_path=meta_path),
             devices=1, x64=False, timeout=900)
@@ -213,7 +216,7 @@ def test_dense_init_is_a_truncated_fan_in_normal():
 # -- the parameter tree and counts ----------------------------------------------
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FRONTENDS)
 def test_parameter_names_and_shapes_follow_the_reference_tree(reference,
                                                               arch):
     _, meta = reference
@@ -232,7 +235,7 @@ def test_parameter_names_and_shapes_follow_the_reference_tree(reference,
     assert got == want
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FRONTENDS)
 def test_count_params_matches_reference(reference, arch):
     _, meta = reference
     cfg = T.get(arch)
@@ -247,15 +250,6 @@ def test_yi_9b_at_published_width():
             cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
         48, 4096, 32, 4, 128, 11008, 64000)
     assert T.count_params(cfg) == 8_829_407_232
-
-
-@pytest.mark.parametrize("arch", ["paligemma-3b", "musicgen-large"])
-def test_other_families_raise_naming_the_roadmap(arch):
-    cfg = T.get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.count_params(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.init_params(T.reduced(cfg), generator=torch.Generator())
 
 
 def test_registry_and_configs_are_the_reference_data():

@@ -714,8 +714,10 @@ def test_mla_limits_and_require_ported():
               dataclasses.replace(T.get("falcon-mamba-7b"), moe=cfg.moe)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             TM.require_ported(c)
-    with pytest.raises(NotImplementedError, match="frontends are next"):
-        TM.require_ported(T.get("paligemma-3b"))
+    # a frontend on a state-space family is a mix the port does not build
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        TM.require_ported(dataclasses.replace(
+            T.get("falcon-mamba-7b"), frontend=T.get("paligemma-3b").frontend))
     model = T.init_params(cfg, generator=torch.Generator().manual_seed(7))
     toks = torch.zeros((2, 9), dtype=torch.int32)
     _, cache = T.prefill(model, cfg, {"tokens": toks}, 12)
