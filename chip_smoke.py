@@ -112,7 +112,9 @@ no JAX and nothing of the reference package.
    and scan phases also time the two kernels at this model's shapes (q
    (4, 32, 512, 80) bf16; a, b (4, 256, 5120, 64) f32) and the expanded
    decay of one of its chunks; the flash phase also times musicgen-large's
-   prefill call (q = kv = (4, 32, 512, 64) bf16, causal; step 10).
+   prefill call (q = kv = (4, 32, 512, 64) bf16, causal; step 10) and
+   smollm-360m's forward on its trained weights (q (8, 15, 2048, 64), kv
+   (8, 5, 2048, 64) bf16, causal; step 11).
 9. Serving the MoE family (``moe_serving_phase``): deepseek-v2-lite-16b
    at its published width and depth, nothing cut (27 layers, d 2048; MLA
    with 16 heads, kv_lora 512, nope 128, rope 64, v 128; 64 routed
@@ -147,11 +149,31 @@ no JAX and nothing of the reference package.
    Then musicgen-large (48 layers, d 2048, 32 heads of 64, sinusoidal
    positions; 3,229,812,736 weights): 48 flash launches a prefill and its
    prefill logits with the kernel against the plain attention.
-11. The ``kernels:`` line with the counts (the flash kernel's from
-   Yi-9B's, zamba2's, the reduced llama4's and musicgen's runs, the
-   scan's from falcon-mamba's and zamba2's), one JSON line of the
-   kernels' numbers, the card line, and last ``{"ok": true, "device":
-   {...}}``.
+11. Training (``train_phase``, the training substrate): smollm-360m at
+   its published width and depth (32 layers, d 960, 15/5 heads of 64,
+   d_ff 2560, vocab 49152 tied; 361,821,120 float32 weights from a seeded
+   generator on the card, bf16 compute) through ``repro_torch.train``'s
+   ``build_train_step``: the synthetic stream's 8 x 2048 tokens a step,
+   ``TrainConfig(base_lr=1e-3, warmup_steps=2, total_steps=20)``, the plain
+   attention under autograd with remat (the kernels have no backward),
+   8 logical data ways.  Steps 0-5 with finite losses and grad norms and
+   the loss falling; a checkpoint after step 3 in the reference's format;
+   from it, 2 microbatches against 1 (loss within 1e-4 relative, the
+   gradients within 1e-2 relative L2) and AdamW timed on copies;
+   ``restore`` and steps 4-5 replayed to the same loss bits;
+   ``elastic_restore`` onto 2 data ways, every array bit-identical; the
+   grad guard (the flash kernel through ``forward(attn_impl="auto")`` and
+   the scan through ``ops.ssm_scan`` raise under autograd); one step's
+   busy share (``torch.profiler``); then the trained weights' logits with
+   the flash kernel against the plain attention under ``torch.no_grad``
+   (relative L2 within 5 %, 32 launches).  It prints step ms (median of
+   steps 1-5, CUDA events), tokens/s, AdamW ms, peak memory and the
+   checkpoint's seconds beside the card's name and power limit.
+12. The ``kernels:`` line with the counts (the flash kernel's from
+   Yi-9B's, zamba2's, the reduced llama4's, musicgen's and the training
+   phase's runs, the scan's from falcon-mamba's and zamba2's), one JSON
+   line of the kernels' numbers, the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check exits non-zero without the last line.  Everything
 measured is also written to ``DIR/chip_smoke.json`` (default
@@ -279,6 +301,8 @@ VISION_ARCH = "paligemma-3b"
 AUDIO_ARCH = "musicgen-large"
 FRONTEND_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
 AUDIO_FLASH_SHAPE = ((4, 32, 512, 64), (4, 32, 512, 64))
+#: smollm-360m's trained-weights forward (train_phase): 15/5 heads of 64
+TRAIN_FLASH_SHAPE = ((8, 15, 2048, 64), (8, 5, 2048, 64))
 #: a decode step's logits against the full-sequence path's (deepseek's
 #: MLA step, paligemma's step after its prefix), float32 compute, as a
 #: relative L2 distance (the bar of the same comparison in
@@ -286,6 +310,19 @@ AUDIO_FLASH_SHAPE = ((4, 32, 512, 64), (4, 32, 512, 64))
 DECODE_TOL = 1e-3
 SCAN_TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
             "bfloat16": dict(rtol=1e-2, atol=1e-2)}
+#: the training phase: smollm-360m at full width and depth, the synthetic
+#: stream's batches of 8 x 2048 tokens, 8 logical data ways (a row a way)
+TRAIN_ARCH = "smollm-360m"
+TRAIN_DATA = dict(batch_size=8, seq_len=2048, seed=0)
+TRAIN_CFG = dict(base_lr=1e-3, warmup_steps=2, total_steps=20)
+TRAIN_STEPS = 6            # steps 0-5; the checkpoint after step 3
+TRAIN_SAVE = 4
+TRAIN_MESH = (("data", "model"), (8, 1))
+TRAIN_ELASTIC_WAYS = 2
+TRAIN_EVAL_BATCH = 6
+#: microbatching: the loss at the reference's bar
+#: (tests/test_substrate.py:71), the gradients as a relative L2
+TRAIN_MB_TOL = dict(loss_rel=1e-4, grad_rel_l2=1e-2)
 #: the lint phase: alternating passes of each original and fixed submission
 #: (after one warm pass each)
 LINT_PASSES = 5
@@ -492,6 +529,7 @@ def flash_phase(check, report, time_ms):
     row = timed((b, 32, st, 128), (b, 4, st, 128), "prefill")  # Yi-9B's
     timed(*HYBRID_FLASH_SHAPE, "zamba2 prefill")   # head dim 80, padded
     timed(*AUDIO_FLASH_SHAPE, "musicgen prefill")  # head dim 64
+    timed(*TRAIN_FLASH_SHAPE, "smollm forward")    # GQA 15/5, 2048
     timed(*FLASH_OPS_SHAPE, "operations-bound")
     return row
 
@@ -1242,6 +1280,290 @@ def frontend_serving_phase(check, report):
     graphs_phase(check, report, served)
     launches = served["launches"]
     del served
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_step_work(cfg, tokens):
+    """(bf16 operations, f32 operations) of one remat training step of a
+    dense model with the plain attention: the weight products 2 operations
+    a weight a token forward, twice that backward, the layers' forward
+    again under remat (the head's not); the attention's two f32 products
+    of 2 operations over the full (S, S) scores per head (the plain version
+    masks, it does not skip), forward, backward (twice) and recomputed."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+             + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+    head = d * cfg.vocab_size
+    bf16 = 2 * tokens * (3 * (cfg.n_layers * layer + head)
+                         + cfg.n_layers * layer)
+    b, s = TRAIN_DATA["batch_size"], TRAIN_DATA["seq_len"]
+    f32 = 4 * (2 * 2 * b * cfg.n_heads * s * s * hd) * cfg.n_layers
+    return bf16, f32
+
+
+def flat_tree(tree, prefix=""):
+    """Nested mappings' leaves by ``/``-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_phase(check, report, device=None):
+    """The training substrate on the card (``repro_torch.train``):
+    smollm-360m at its published width and depth (32 layers, d 960, 15/5
+    heads of 64, d_ff 2560, vocab 49152 tied; 361,821,120 float32 weights
+    from a seeded generator, bf16 compute), the synthetic stream's 8 x 2048
+    tokens a step, ``TrainConfig(base_lr=1e-3, warmup_steps=2,
+    total_steps=20)``, the plain attention under autograd with remat, 8
+    logical data ways.  Steps 0-5: finite loss and grad norm, the loss
+    falling; a checkpoint after step 3 (``checkpoint.save`` in the
+    reference's layout); from it, the gradients of 2 microbatches against
+    1 and the AdamW step timed on copies; ``restore`` and steps 4-5
+    replayed to a bitwise-equal loss; ``elastic_restore`` onto 2 data ways,
+    every array bit-identical; the grad guard (the flash kernel under
+    autograd, the scan through "auto"); one step's busy share; then, under
+    ``torch.no_grad``, the trained weights' logits with the flash kernel
+    against the plain attention on batch 6 (32 launches).  Returns the
+    phase's launch counts.  ``device`` (the card when None) is for a
+    rehearsal on the CPU with the CUDA calls faked."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import DataConfig, SyntheticStream, input_specs
+    from repro_torch.dist import LogicalMesh
+    from repro_torch.ft.elastic import elastic_restore
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import (
+        CallConfig, count_params, forward, get, init_params,
+    )
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.train import (
+        TrainConfig, build_train_step, grads_with_microbatching,
+    )
+
+    dev = torch.device(device or "cuda")
+    card = nvidia_smi("name,power.limit")
+    cfg = get(TRAIN_ARCH)
+    check((cfg.family, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+           cfg.tie_embeddings)
+          == ("dense", 32, 960, 15, 5, 64, 2560, 49152, True),
+          f"{cfg.name} is not at its published width: {cfg}")
+    n_params = count_params(cfg)
+    check(n_params == 361_821_120, f"{cfg.name}: {n_params} weights")
+    print(f"== training {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+          f"{n_params} f32 weights, {TRAIN_DATA['batch_size']} x "
+          f"{TRAIN_DATA['seq_len']} tokens a step ({card})", flush=True)
+    free, total = torch.cuda.mem_get_info()
+    base = torch.cuda.memory_allocated()
+    print(f"  device memory before the draw: {free} B free of {total} B, "
+          f"{base} B allocated", flush=True)
+    build.reset_counts()
+    model = init_params(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                        **TRAIN_DATA), cfg)
+    b, s = TRAIN_DATA["batch_size"], TRAIN_DATA["seq_len"]
+    tcfg = TrainConfig(**TRAIN_CFG)
+    mesh = LogicalMesh(*TRAIN_MESH)
+    step, pspecs, ospecs, bspecs = build_train_step(
+        cfg, tcfg, input_specs(cfg, mode="train", batch=b, seq=s),
+        mesh=mesh, device=dev)
+    specs = {"params": pspecs, "opt": ospecs}
+    opt = adamw_init(model)
+    batches = [stream.batch(i) for i in range(TRAIN_STEPS)]
+    ckpt = os.path.join(ROOT, "build", "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    rows, saved = [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_SAVE:
+            t0 = time.perf_counter()
+            saved = {"params": convert.model_params_to_numpy(model, cfg),
+                     "opt": convert.adamw_state_to_numpy(opt, cfg)}
+            save(ckpt, TRAIN_SAVE, saved, specs, data_index=TRAIN_SAVE)
+            save_s = time.perf_counter() - t0
+        (_, opt, m), ms = timed(lambda: step(model, opt, batches[i], i))
+        row = {"step": i, "ms": ms, **{k: float(m[k]) for k in
+                                       ("loss", "lr", "grad_norm")}}
+        rows.append(row)
+        print(f"  step {i}: loss {row['loss']:.6f}, lr {row['lr']:.6g}, "
+              f"grad_norm {row['grad_norm']:.6f}, {ms:.1f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+              for r in rows), "training: a loss or grad norm is not finite")
+    check(rows[-1]["loss"] < rows[0]["loss"],
+          f"training: the loss did not fall ({rows[0]['loss']} at step 0, "
+          f"{rows[-1]['loss']} at step {TRAIN_STEPS - 1})")
+    step_ms = statistics.median(r["ms"] for r in rows[1:])
+
+    # -- restore the checkpoint; microbatches and AdamW from its state ------
+    t0 = time.perf_counter()
+    at, data_index, state = restore(ckpt, mesh, specs, device=dev)
+    model.load_state_dict(convert.model_params_from_numpy(
+        state["params"], cfg))
+    opt = convert.adamw_state_from_numpy(state["opt"], cfg)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check((at, data_index) == (TRAIN_SAVE, TRAIN_SAVE),
+          f"restore: step {at}, data index {data_index}")
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batches[data_index].items()}
+    l1, g1 = grads_with_microbatching(cfg, tcfg.call, 1)(model, batch)
+    l2, g2 = grads_with_microbatching(cfg, tcfg.call, 2)(model, batch)
+    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    num = sum(float(torch.sum((g1[n].float() - g2[n]) ** 2)) for n in g1)
+    den = sum(float(torch.sum(g1[n].float() ** 2)) for n in g1)
+    grad_rel = (num / den) ** 0.5
+    worst = max((float(torch.linalg.vector_norm(g1[n].float() - g2[n])
+                       / torch.linalg.vector_norm(g1[n].float())), n)
+                for n in g1)
+    check(loss_rel <= TRAIN_MB_TOL["loss_rel"]
+          and grad_rel <= TRAIN_MB_TOL["grad_rel_l2"],
+          f"microbatches 2 vs 1: loss rel {loss_rel:.3g}, gradients rel L2 "
+          f"{grad_rel:.3g} (bars {TRAIN_MB_TOL})")
+    print(f"  microbatches 2 vs 1 (step {data_index}'s state): loss "
+          f"{float(l1):.6f} / {float(l2):.6f} (rel {loss_rel:.3g}), "
+          f"gradients rel L2 {grad_rel:.3g}, worst leaf {worst[1]} "
+          f"{worst[0]:.3g}", flush=True)
+    del g2
+    p_copy = {n: t.detach().clone() for n, t in model.named_parameters()}
+    o_copy = {"mu": {n: t.clone() for n, t in opt["mu"].items()},
+              "nu": {n: t.clone() for n, t in opt["nu"].items()},
+              "count": opt["count"].clone()}
+    lr = torch.full((), 1e-3, dtype=torch.float32, device=dev)
+    adamw_ms = statistics.median(
+        timed(lambda: adamw_update(g1, o_copy, p_copy, lr, tcfg.adamw))[1]
+        for _ in range(5))
+    del g1, p_copy, o_copy
+    torch.cuda.empty_cache()
+
+    # -- steps 4-5 replayed from the checkpoint: the same bits ----------------
+    for i in range(data_index, TRAIN_STEPS):
+        _, opt, m = step(model, opt, batches[i], i)
+        replay = float(m["loss"])
+        check(replay == rows[i]["loss"],
+              f"resume: step {i}'s loss {replay!r} after restore, "
+              f"{rows[i]['loss']!r} before")
+    print(f"  resume from step {at}: steps {at}-{TRAIN_STEPS - 1} replayed, "
+          f"last loss {replay!r} (before: {rows[-1]['loss']!r})", flush=True)
+
+    # -- elastic: the 8-way checkpoint restored onto 2 data ways ---------------
+    at2, di2, state2, mesh2 = elastic_restore(
+        ckpt, range(TRAIN_ELASTIC_WAYS), convert.reference_shapes(cfg),
+        device=dev)
+    flat_saved, flat_got = flat_tree(saved), flat_tree(state2)
+    same = (set(flat_saved) == set(flat_got) and all(
+        np.array_equal(flat_saved[k], flat_got[k].cpu().numpy())
+        and str(flat_saved[k].dtype) == str(flat_got[k].cpu().numpy().dtype)
+        for k in flat_saved))
+    check(same and (at2, di2) == (TRAIN_SAVE, TRAIN_SAVE)
+          and mesh2.shape == {"data": TRAIN_ELASTIC_WAYS},
+          f"elastic restore onto {TRAIN_ELASTIC_WAYS} ways: "
+          f"bit-identical {same}, step {at2}, mesh {mesh2}")
+    print(f"  elastic restore: {len(flat_got)} arrays written on "
+          f"{mesh.shape} restored on {mesh2.shape}, bit-identical {same}",
+          flush=True)
+    del state, state2, saved, flat_saved, flat_got
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # -- the grad guard: a kernel under autograd raises -----------------------
+    small = {"tokens": batch["tokens"][:1, :64]}
+    for what, fn in (
+            ("the flash kernel through forward(attn_impl='auto')",
+             lambda: forward(model, cfg, small, CallConfig(attn_impl="auto"))),
+            ("the scan kernel through ops.ssm_scan(impl='auto')",
+             lambda: ops.ssm_scan(
+                 torch.rand((1, 4, 8, 16), device=dev).requires_grad_(),
+                 torch.rand((1, 4, 8, 16), device=dev),
+                 torch.rand((1, 4, 16), device=dev)))):
+        try:
+            with torch.enable_grad():
+                fn()
+            msg = None
+        except RuntimeError as e:
+            msg = str(e)
+        check(msg is not None and build.BACKWARD in msg,
+              f"grad guard: {what} under autograd gave {msg!r}")
+        print(f"  grad guard: {what} raises: {msg}", flush=True)
+
+    # -- one step's device busy share -------------------------------------------
+    nxt = batches[TRAIN_STEPS - 1]
+    busy = device_busy(lambda: step(model, opt, nxt, TRAIN_STEPS), 1)
+    print(f"  one step, profiled: wall {busy['wall_us'] / 1e3:.1f} ms, device "
+          f"{busy['device_us'] / 1e3:.1f} ms, busy share "
+          f"{busy['busy_share']:.3f}; top "
+          + "; ".join(f"{k[:40]} {us / 1e3:.1f} ms x{c}"
+                      for k, us, c in busy["top"][:5]), flush=True)
+
+    # -- the trained weights through the flash kernel -----------------------------
+    ev = {k: torch.as_tensor(v, device=dev)
+          for k, v in stream.batch(TRAIN_EVAL_BATCH).items()}
+    with torch.no_grad():
+        before = build.launch_counts()["flash_attention"]
+        lk, _ = forward(model, cfg, ev, CallConfig(attn_impl="kernel"))
+        torch.cuda.synchronize()
+        flash = build.launch_counts()["flash_attention"] - before
+        lp, _ = forward(model, cfg, ev, CallConfig(attn_impl="plain"))
+        rel = float(torch.linalg.vector_norm(lk - lp)
+                    / torch.linalg.vector_norm(lp))
+    check(rel <= PREFILL_TOL["bfloat16"]["rel_l2"],
+          f"trained weights, kernel vs plain logits: rel L2 {rel:.4g}")
+    check(flash == cfg.n_layers,
+          f"trained weights: {flash} flash launches a forward, not "
+          f"{cfg.n_layers}")
+    print(f"  trained weights (batch {TRAIN_EVAL_BATCH}), flash kernel vs "
+          f"plain attention: logits rel L2 {rel:.4g} (bar "
+          f"{PREFILL_TOL['bfloat16']['rel_l2']}), {flash} flash launches",
+          flush=True)
+    del lk, lp, model, opt
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+
+    tokens = b * s
+    bf16_ops, f32_ops = train_step_work(cfg, tokens)
+    ops_ms = (bf16_ops / PEAK_OPS_PER_S["bfloat16"]
+              + f32_ops / PEAK_OPS_PER_S["float32"]) * 1e3
+    adamw_bytes = 7 * 4 * n_params
+    out = {"card": card, "arch": cfg.name, "params": n_params,
+           "tokens_per_step": tokens, "steps": rows, "step_ms": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "adamw_ms": adamw_ms,
+           "adamw_bound_ms": adamw_bytes / HBM_BYTES_PER_S * 1e3,
+           "peak_bytes": peak, "peak_over_start_bytes": peak - base,
+           "save_s": save_s, "restore_s": restore_s,
+           "mb_loss_rel": loss_rel, "mb_grad_rel_l2": grad_rel,
+           "mb_worst_leaf": worst, "resume_loss": replay,
+           "busy": busy, "eval_rel_l2": rel, "eval_flash_launches": flash,
+           "bf16_tflop": bf16_ops / 1e12, "f32_tflop": f32_ops / 1e12,
+           "ops_bound_ms": ops_ms, "launches": launches}
+    report["train"] = out
+    print(f"  {cfg.name} training ({card}): step {step_ms:.1f} ms (median of "
+          f"steps 1-{TRAIN_STEPS - 1}), {out['tokens_per_s']:.0f} tokens/s; "
+          f"AdamW {adamw_ms:.2f} ms (bound {out['adamw_bound_ms']:.3f} ms, "
+          f"{adamw_bytes} B); peak {peak} B ({peak - base} B over the "
+          f"phase's start); checkpoint save {save_s:.2f} s, "
+          f"restore {restore_s:.2f} s; products {bf16_ops / 1e12:.2f} TFLOP "
+          f"bf16 + {f32_ops / 1e12:.2f} f32, bound {ops_ms:.1f} ms; busy "
+          f"share {busy['busy_share']:.3f}; launches {launches}", flush=True)
     torch.cuda.empty_cache()
     return launches
 
@@ -3226,11 +3548,17 @@ def main() -> int:
     frontend_launches = frontend_serving_phase(check, report)
     torch.cuda.empty_cache()
 
-    # -- 11. what the main paths launched, and the result lines --------------
+    # -- 11. training smollm-360m (the plain paths under autograd), then its
+    #        trained weights through the flash kernel -----------------------
+    train_launches = train_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 12. what the main paths launched, and the result lines --------------
     launches["flash_attention"] = (serve_launches["flash_attention"]
                                    + hybrid_launches["flash_attention"]
                                    + moe_launches["flash_attention"]
-                                   + frontend_launches["flash_attention"])
+                                   + frontend_launches["flash_attention"]
+                                   + train_launches["flash_attention"])
     launches["ssm_scan"] = (ssm_launches["ssm_scan"]
                             + hybrid_launches["ssm_scan"])
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())

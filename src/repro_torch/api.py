@@ -32,8 +32,8 @@ Quickstart::
     print(handle.explain())               # predicted vs measured
 
 ``Session(device="cpu", num_clusters=8)`` runs the same path on the
-kernels' plain versions.  The one name of the reference's surface whose
-module is not ported yet is listed in :data:`NOT_YET_PORTED`.
+kernels' plain versions.  Every name of the reference's surface is here:
+:data:`NOT_YET_PORTED` is empty.
 """
 
 from repro_torch.analysis import (
@@ -111,13 +111,13 @@ from repro_torch.core.session import (
     estimate,
     predict_staging,
 )
-from repro_torch.ft import BackupOffload, StepWatchdog, WatchdogConfig
+from repro_torch.ft import (
+    BackupOffload, StepWatchdog, WatchdogConfig, elastic_restore,
+)
 from repro_torch.serve import ServeConfig, ServeEngine, ServeTenant
 
-#: names of ``repro.api.__all__`` whose modules the port does not have yet:
-#: ``elastic_restore`` (``ft/elastic.py``) restores a checkpoint onto a new
-#: mesh and comes with the training substrate.
-NOT_YET_PORTED = ("elastic_restore",)
+#: names of ``repro.api.__all__`` whose modules the port does not have yet
+NOT_YET_PORTED: tuple = ()
 
 __all__ = [
     "AUTO",
@@ -179,6 +179,7 @@ __all__ = [
     "VerificationError",
     "WatchdogConfig",
     "deadline_cycles",
+    "elastic_restore",
     "estimate",
     "explain",
     "lint",

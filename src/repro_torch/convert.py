@@ -1,9 +1,14 @@
 """Carrying state across from the reference package.
 
 This system has no trained weights: what ``repro`` and ``repro_torch``
-share is the job instances, the machine constants and the models' random
-weights.  Every helper takes plain data (numpy arrays, dicts), so nothing
-here imports the reference.
+share is the job instances, the machine constants, the models' random
+weights and a training run's state (parameters, AdamW moments,
+checkpoints).  Every helper takes plain data (numpy arrays, dicts), so
+nothing here imports the reference.  A model's parameters cross in the
+reference's layout, every layer leaf stacked over a leading L axis, both
+ways: the parity tests load the reference's weights into the port, and
+``checkpoint.store`` writes the port's in that layout, so either package
+reads the other's checkpoints.
 """
 
 from __future__ import annotations
@@ -53,14 +58,92 @@ def occamy_params_from_dict(d: Mapping[str, Any]) -> OccamyParams:
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
-            ) -> Dict[Tuple[str, ...], np.ndarray]:
-    out: Dict[Tuple[str, ...], np.ndarray] = {}
+            ) -> Dict[Tuple[str, ...], Any]:
+    """The leaves of nested mappings by path; tensors stay tensors, anything
+    else becomes a numpy array."""
+    out: Dict[Tuple[str, ...], Any] = {}
     for key, node in tree.items():
         path = prefix + (str(key),)
         if isinstance(node, Mapping):
             out.update(_leaves(node, path))
         else:
-            out[path] = np.asarray(node)
+            out[path] = (node if isinstance(node, torch.Tensor)
+                         else np.asarray(node))
+    return out
+
+
+def _nest(flat: Mapping[Tuple[str, ...], Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        node = tree
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def _port_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    from repro_torch.models.model import Transformer   # avoid cycle
+    return Transformer(cfg, device="meta").state_dict()
+
+
+def _reference_leaves(cfg: ModelConfig
+                      ) -> Dict[Tuple[str, ...], Tuple[Tuple[int, ...],
+                                                       torch.dtype]]:
+    """The reference's tree as path -> (shape, dtype): every per-layer leaf
+    of the port (``layers.<i>.attn.wq``) stacked over L (``layers/attn/wq``
+    of (L, ...)), every other leaf as it is."""
+    out = {}
+    for name, t in _port_params(cfg).items():
+        parts = tuple(name.split("."))
+        if parts[0] == "layers":
+            if parts[1] == "0":
+                out[("layers",) + parts[2:]] = (
+                    (cfg.n_layers,) + tuple(t.shape), t.dtype)
+        else:
+            out[parts] = (tuple(t.shape), t.dtype)
+    return out
+
+
+def reference_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's ``init_params`` tree for ``cfg`` as ``meta`` tensors
+    (shapes and dtypes, nothing allocated; ``jax.eval_shape``'s result):
+    the tree ``dist.param_specs`` and ``ft.elastic_restore`` read."""
+    return _nest({path: torch.empty(shape, dtype=dt, device="meta")
+                  for path, (shape, dt) in _reference_leaves(cfg).items()})
+
+
+def _unstack(tree: Mapping[str, Any], cfg: ModelConfig, cast: bool
+             ) -> Dict[str, torch.Tensor]:
+    """The reference's stacked tree (numpy arrays or tensors) by the port's
+    parameter names, checked leaf by leaf; with ``cast``, in the port's
+    parameter dtypes."""
+    want = _port_params(cfg)
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(name: str, arr) -> None:
+        if name not in want:
+            raise ValueError(f"unknown parameter {name!r} for {cfg.name}")
+        if tuple(arr.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)}, the port's "
+                             f"is {tuple(want[name].shape)}")
+        t = (arr if isinstance(arr, torch.Tensor)
+             else torch.from_numpy(np.array(arr, order="C")))
+        out[name] = t.to(want[name].dtype) if cast else t
+
+    for path, arr in _leaves(tree).items():
+        if path[0] == "layers":
+            if arr.ndim < 1 or arr.shape[0] != cfg.n_layers:
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(arr.shape)} is not stacked over "
+                                 f"{cfg.n_layers} layers")
+            for i in range(cfg.n_layers):
+                put(".".join(("layers", str(i)) + path[1:]), arr[i])
+        else:
+            put(".".join(path), arr)
+    missing = sorted(set(want) - set(out))
+    if missing:
+        raise ValueError(f"missing parameters for {cfg.name}: {missing}")
     return out
 
 
@@ -74,31 +157,68 @@ def model_params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
     (``layers/attn/wq`` is (L, d, q)); the port has one module per layer
     (``layers.<i>.attn.wq``).  Unknown or missing leaves, and leaves of
     another shape, raise.  Load the result with
-    ``model.load_state_dict(sd, assign=True)``.
+    ``model.load_state_dict(sd, assign=True)``.  Leaves may also be
+    tensors (a checkpoint restored onto a device): the result's tensors
+    are then views of theirs, on their device, for ``load_state_dict`` to
+    copy into a model.
     """
-    from repro_torch.models.model import Transformer   # avoid cycle
-    want = Transformer(cfg, device="meta").state_dict()
-    out: Dict[str, torch.Tensor] = {}
+    return _unstack(tree, cfg, cast=True)
 
-    def put(name: str, arr: np.ndarray) -> None:
-        if name not in want:
-            raise ValueError(f"unknown parameter {name!r} for {cfg.name}")
-        if tuple(arr.shape) != tuple(want[name].shape):
-            raise ValueError(f"{name}: shape {arr.shape}, the port's is "
-                             f"{tuple(want[name].shape)}")
-        out[name] = torch.from_numpy(np.array(arr, order="C")).to(
-            want[name].dtype)
 
-    for path, arr in _leaves(tree).items():
+def model_params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`model_params_from_numpy`: a model's parameters
+    (an ``nn.Module`` or a mapping of the port's names to tensors, such as
+    AdamW's ``mu``) as the reference's stacked tree of numpy arrays.
+    Unknown or missing names, and tensors of another shape, raise."""
+    named = (dict(params.named_parameters())
+             if isinstance(params, torch.nn.Module) else dict(params))
+    want = _port_params(cfg)
+    unknown = sorted(set(named) - set(want))
+    missing = sorted(set(want) - set(named))
+    if unknown or missing:
+        raise ValueError(f"{cfg.name}: unknown parameters {unknown}, "
+                         f"missing {missing}")
+    for name, t in named.items():
+        if tuple(t.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the port's "
+                             f"is {tuple(want[name].shape)}")
+
+    def host(t: torch.Tensor) -> np.ndarray:
+        # a copy: on the CPU ``.cpu().numpy()`` would alias the live tensor
+        return t.detach().to("cpu", copy=True).numpy()
+
+    flat = {}
+    for path in _reference_leaves(cfg):
         if path[0] == "layers":
-            if arr.ndim < 1 or arr.shape[0] != cfg.n_layers:
-                raise ValueError(f"{'/'.join(path)}: shape {arr.shape} is "
-                                 f"not stacked over {cfg.n_layers} layers")
-            for i in range(cfg.n_layers):
-                put(".".join(("layers", str(i)) + path[1:]), arr[i])
+            rest = ".".join(path[1:])
+            flat[path] = host(torch.stack(
+                [named[f"layers.{i}.{rest}"] for i in range(cfg.n_layers)]))
         else:
-            put(".".join(path), arr)
-    missing = sorted(set(want) - set(out))
-    if missing:
-        raise ValueError(f"missing parameters for {cfg.name}: {missing}")
-    return out
+            flat[path] = host(named[".".join(path)])
+    return _nest(flat)
+
+
+def adamw_state_to_numpy(state: Mapping[str, Any], cfg: ModelConfig
+                         ) -> Dict[str, Any]:
+    """The port's AdamW state (``optim.adamw_init``'s) as the reference's
+    ``{"mu", "nu", "count"}`` tree of numpy arrays: the moments stacked as
+    :func:`model_params_to_numpy` stacks the parameters, ``count`` a 0-d
+    int32 array."""
+    return {"mu": model_params_to_numpy(state["mu"], cfg),
+            "nu": model_params_to_numpy(state["nu"], cfg),
+            "count": state["count"].detach().to("cpu", copy=True).numpy()}
+
+
+def adamw_state_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig
+                           ) -> Dict[str, Any]:
+    """The reference's AdamW state (numpy arrays, or tensors restored onto
+    a device) as the port's, the moments in their own dtype, on the
+    leaves' device; errors as :func:`model_params_from_numpy`'s."""
+    count = tree["count"]
+    count = (count if isinstance(count, torch.Tensor)
+             else torch.from_numpy(np.array(count)))
+    if count.ndim != 0:
+        raise ValueError(f"count must be a scalar, got {tuple(count.shape)}")
+    return {"mu": _unstack(tree["mu"], cfg, cast=False),
+            "nu": _unstack(tree["nu"], cfg, cast=False),
+            "count": count.to(torch.int32)}

@@ -1,11 +1,15 @@
-"""Synthetic token stream (twin of ``repro.data.pipeline``, numpy only).
+"""Synthetic token stream + input specs (twin of ``repro.data.pipeline``).
 
 ``SyntheticStream.batch(i)`` is a pure function of (seed, i): restartable,
 shardable (each data-parallel group slices its rows), and cheap.  The token
 distribution is Zipf-like with a 30 % repeat-previous structure.  The code
-is the reference's, so both packages draw bit-identical batches from one
-Philox stream per ``(seed, index)``.  ``input_specs`` (the dry-run
-contract) comes with the dry-run tools.
+is the reference's, in numpy only, so both packages draw bit-identical
+batches from one Philox stream per ``(seed, index)``.
+
+``input_specs`` stands in for every model input of an (architecture ×
+input-shape) cell with a tensor on the ``meta`` device (shape and dtype,
+nothing allocated), where the reference gives ``jax.ShapeDtypeStruct``s:
+the batch shapes ``train.build_train_step`` and ``dist.batch_specs`` take.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -65,3 +70,35 @@ class SyntheticStream:
         while True:
             yield self.batch(i)
             i += 1
+
+
+# --- input specs ---------------------------------------------------------------------
+
+
+def input_specs(
+    cfg: ModelConfig,
+    *,
+    mode: str,                  # "train" | "prefill" | "decode"
+    batch: int,
+    seq: int,
+) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for every model input of a cell."""
+    def spec(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    i32, f32 = torch.int32, torch.float32
+    if mode == "decode":
+        return {"tokens": spec((batch, 1), i32)}
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.frontend and cfg.frontend.kind == "vision_stub":
+        p = cfg.frontend.n_prefix_tokens
+        text = max(seq - p, 1)
+        specs["patches"] = spec((batch, p, cfg.d_model), f32)
+        specs["tokens"] = spec((batch, text), i32)
+        if mode == "train":
+            specs["labels"] = spec((batch, text), i32)
+        return specs
+    specs["tokens"] = spec((batch, seq), i32)
+    if mode == "train":
+        specs["labels"] = spec((batch, seq), i32)
+    return specs

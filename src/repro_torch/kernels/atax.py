@@ -170,6 +170,7 @@ def card_plan(index: int, batch: int, m: int, n: int,
 
 
 def atax(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    _b.refuse_grad("atax", a, x)
     if a.ndim < 2 or x.ndim != a.ndim - 1 or a.shape[:-2] != x.shape[:-1] \
             or a.shape[-1] != x.shape[-1]:
         raise ValueError(f"atax shapes {tuple(a.shape)}, {tuple(x.shape)}")

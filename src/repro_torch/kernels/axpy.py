@@ -20,6 +20,7 @@ KERNEL = _b.KERNELS["axpy"]
 
 
 def axpy(x: torch.Tensor, y: torch.Tensor, alpha: float) -> torch.Tensor:
+    _b.refuse_grad("axpy", x, y)
     if x.shape != y.shape or x.ndim < 1:
         raise ValueError(f"axpy wants equal shapes, got {x.shape}, {y.shape}")
     code = _b.check_inputs("axpy", x, y)

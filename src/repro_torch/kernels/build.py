@@ -196,6 +196,26 @@ def check_rc(rc: int, kernel: str) -> None:
             f"{kernel} kernel launch failed with CUDA error {rc}")
 
 
+#: where the kernels' backward pass stands in the plan of work
+BACKWARD = ("the kernels have no backward pass yet: ROADMAP.md, 'After the "
+            "modules', a backward for the flash and scan kernels")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``.
+
+    A kernel's output is a fresh tensor with no autograd history, so a
+    gradient asked through it would be dropped without an error.  Every
+    wrapper calls this first, before any device check, so a caller on the
+    CPU sees it as well (``None`` entries are skipped)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: an input requires grad under autograd; run the "
+            f"kernel under torch.no_grad(), or the plain version for "
+            f"training ({BACKWARD})")
+
+
 def check_inputs(kernel: str, *tensors: torch.Tensor) -> int:
     """Validate what every kernel takes: CUDA, one device, one supported
     dtype, contiguous.  Returns the dtype code.

@@ -23,6 +23,7 @@ KERNEL = _b.KERNELS["covariance"]
 
 
 def covariance(data: torch.Tensor) -> torch.Tensor:
+    _b.refuse_grad("covariance", data)
     if data.ndim < 2:
         raise ValueError(f"covariance wants (..., M, N), got {tuple(data.shape)}")
     m, n = data.shape[-2:]

@@ -29,6 +29,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
+    _b.refuse_grad("flash_attention", q, k, v)
     if (q.ndim != 4 or k.ndim != 4 or k.shape != v.shape
             or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]
             or k.shape[1] < 1 or q.shape[1] % k.shape[1]):
@@ -66,6 +67,7 @@ def qk_tile(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """S = q · kᵀ in f32 for one (64, D) bf16 tile each, through the bf16
     kernel's TMA loads and wgmma descriptors: a check of the tensor-core
     path on its own (not counted as a launch of the attention kernel)."""
+    _b.refuse_grad("qk_tile", q, k)
     if (q.shape != k.shape or q.ndim != 2 or q.shape[0] != 64
             or q.shape[1] not in HEAD_DIMS or q.dtype != torch.bfloat16):
         raise ValueError(f"qk_tile takes two (64, D) bf16 tiles, D in "

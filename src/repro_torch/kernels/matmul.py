@@ -21,6 +21,7 @@ KERNEL = _b.KERNELS["matmul"]
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    _b.refuse_grad("matmul", a, b)
     if (a.ndim < 2 or b.ndim != a.ndim or a.shape[:-2] != b.shape[:-2]
             or a.shape[-1] != b.shape[-2]):
         raise ValueError(f"matmul shapes {tuple(a.shape)} @ {tuple(b.shape)}")

@@ -77,9 +77,10 @@ def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     h = (torch.zeros((bsz, d, n), dtype=f32, device=a.device) if h0 is None
          else h0.to(f32))
     a32, b32, c32 = a.to(f32), b.to(f32), c.to(f32)
-    y = torch.empty((bsz, s, d), dtype=f32, device=a.device)
+    ys = []
     for t in range(s):
         h = a32[:, t] * h + b32[:, t]
-        y[:, t] = torch.matmul(h, c32[:, t, :, None])[..., 0]
-    y = y.to(a.dtype)
+        ys.append(torch.matmul(h, c32[:, t, :, None])[..., 0])
+    y = (torch.stack(ys, dim=1) if ys
+         else a32.new_zeros((bsz, 0, d))).to(a.dtype)
     return (y, h) if return_state else y

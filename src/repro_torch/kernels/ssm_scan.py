@@ -28,6 +28,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
              h0: Optional[torch.Tensor] = None, return_state: bool = False):
+    _b.refuse_grad("ssm_scan", a, b, c, h0)
     if (a.ndim != 4 or b.shape != a.shape or c.ndim != 3
             or tuple(c.shape) != (a.shape[0], a.shape[1], a.shape[3])):
         raise ValueError(f"ssm_scan shapes a={tuple(a.shape)} "

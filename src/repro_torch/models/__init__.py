@@ -2,8 +2,7 @@
 (with GQA, or with DeepSeek-V2's MLA attention), the Mamba-1 SSM, the
 Mamba-2 hybrid with Zamba2's shared attention block, and the stub modality
 frontends (PaliGemma's vision prefix, MusicGen's audio tokens) — twin of
-``repro.models``; ``loss_fn`` comes with training, ROADMAP.md Queue 1
-item 6."""
+``repro.models``, with ``loss_fn`` for training (``repro_torch.train``)."""
 
 from repro_torch.models.config import (
     FrontendConfig, HybridConfig, MLAConfig, MoEConfig, ModelConfig, SSMConfig,
@@ -11,7 +10,7 @@ from repro_torch.models.config import (
 )
 from repro_torch.models.model import (
     CallConfig, Transformer, decode_step, decode_step_ragged, forward,
-    init_cache, init_params, prefill,
+    init_cache, init_params, loss_fn, prefill,
 )
 from repro_torch.models.registry import ARCHS, count_params, get
 
@@ -19,5 +18,5 @@ __all__ = [
     "ARCHS", "CallConfig", "FrontendConfig", "HybridConfig", "MLAConfig",
     "MoEConfig", "ModelConfig", "SSMConfig", "Transformer", "count_params",
     "decode_step", "decode_step_ragged", "forward", "get", "init_cache",
-    "init_params", "prefill", "reduced",
+    "init_params", "loss_fn", "prefill", "reduced",
 ]

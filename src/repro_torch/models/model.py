@@ -31,8 +31,16 @@ families the reference never combines (a frontend or MoE layers on the
 state-space families) raises :class:`NotImplementedError`.
 Of ``CallConfig``'s fields, the reference's sharding knobs
 (``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) have no
-meaning on one device and ``attn_chunk_remat`` none without a backward
-pass: neither is ported.
+meaning on one device, and ``attn_chunk_remat`` recomputes the chunked
+attention's chunks, which no training call of the port runs: neither is
+ported.  ``remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+nothing saveable), so a training step keeps the layers' inputs only.
+
+:func:`loss_fn` is the reference's next-token cross entropy.  The kernels
+have no backward: under autograd a kernel wrapper raises, so a training
+call runs the plain attention and scan (``repro_torch.train``'s default
+``CallConfig``), as the reference's trains through its XLA paths.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import dataclasses
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.models import attention as attn
@@ -58,7 +67,7 @@ from repro_torch.models.layers import (
 Cache = Dict[str, Any]
 
 #: what the port builds, and the ROADMAP item that comes next
-_WAITS = "ROADMAP.md Queue 1 item 6 (training) is next"
+_WAITS = "ROADMAP.md Queue 1 item 7 (launch/) is next"
 _BUILDS = ("the port builds every family of the registry: dense, moe (GQA "
            "or MLA), ssm, hybrid, and the vlm and audio frontends on "
            "decoder layers")
@@ -125,8 +134,8 @@ class CallConfig:
     attn_impl: str = "auto"         # "plain" | "chunked" | "kernel" | "auto"
     attn_chunk: int = 512
     ssm_impl: str = "auto"          # "plain" | "kernel" | "auto" (SSM scan)
-    # kept for the reference's signature; it means nothing without a
-    # backward pass and is ignored until training lands (Queue 1 item 6)
+    # recompute each layer's activations in the backward pass (forward
+    # under autograd only; the reference's ``jax.checkpoint``)
     remat: bool = True
     moe_no_drop: bool = False       # exact MoE routing (serving / eval)
     # one compute-dtype copy of every f32 layer weight per call (the MoE
@@ -569,6 +578,57 @@ def shared_attn_block(x: torch.Tensor, sb: Mapping[str, Any],
     return x + _mlp(h, sb, cfg)
 
 
+def _decoder_layer(x, lp, cfg: ModelConfig, positions, prefix_len: int,
+                   call: CallConfig) -> Tuple[torch.Tensor, Any]:
+    """A decoder layer on the full sequence -> (x, MoE aux loss or None)."""
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
+    if cfg.mla:
+        x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
+                                   impl=call.attn_impl, chunk=call.attn_chunk)
+    else:
+        x = x + attn.gqa_attention(h, lp["attn"], cfg, positions,
+                                   impl=call.attn_impl, prefix_len=prefix_len,
+                                   chunk=call.attn_chunk)
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
+    delta, aux = _ffn(h, lp, cfg, call.moe_no_drop)
+    return x + delta, aux
+
+
+def _mamba1_layer(x, lp, cfg: ModelConfig, call: CallConfig) -> torch.Tensor:
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    return x + ssm_lib.mamba1_block(h, lp["mixer"], cfg, impl=call.ssm_impl)
+
+
+def _hybrid_layer(x, lp, sb, shared: bool, cfg: ModelConfig, positions,
+                  call: CallConfig) -> torch.Tensor:
+    """A Mamba-2 layer, then the shared block where it applies (inside the
+    body, as the reference's ``lax.cond`` is inside its scan body)."""
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    x = x + ssm_lib.mamba2_block(h, lp["mixer"], cfg, impl=call.ssm_impl)
+    if shared:
+        x = shared_attn_block(x, sb, cfg, positions, call)
+    return x
+
+
+def _requires_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    return isinstance(tree, Mapping) and any(
+        _requires_grad(v) for v in tree.values())
+
+
+def _run_layer(call: CallConfig, body, x, lp, *args):
+    """``body(x, lp, *args)``; with ``remat``, when autograd records it (x
+    or a weight of the layer requires grad), recomputed in the backward
+    pass (``torch.utils.checkpoint``): only the layer's inputs are kept,
+    as the reference's ``jax.checkpoint(nothing_saveable)``."""
+    if (call.remat and torch.is_grad_enabled()
+            and (x.requires_grad or _requires_grad(lp))):
+        return torch.utils.checkpoint.checkpoint(body, x, lp, *args,
+                                                 use_reentrant=False)
+    return body(x, lp, *args)
+
+
 def forward(model: Transformer, cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
             call: CallConfig = CallConfig()
@@ -576,39 +636,44 @@ def forward(model: Transformer, cfg: ModelConfig,
     """Full forward pass -> (logits f32, aux_loss)."""
     require_ported(cfg)
     x, positions, prefix_len = embed_inputs(model, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         sb = _shared_weights(model, cfg, call)
         for idx, lp in enumerate(_layer_list(model, cfg, call)):
-            h = rms_norm(x, lp["ln"], cfg.norm_eps)
-            x = x + ssm_lib.mamba2_block(h, lp["mixer"], cfg,
-                                         impl=call.ssm_impl)
-            if _applies_shared(cfg, idx):
-                x = shared_attn_block(x, sb, cfg, positions, call)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x = _run_layer(call, _hybrid_layer, x, lp, sb,
+                           _applies_shared(cfg, idx), cfg, positions, call)
         return unembed(model, cfg, x), aux
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in _layer_list(model, cfg, call):
         if cfg.family == "ssm":
-            h = rms_norm(x, lp["ln"], cfg.norm_eps)
-            x = x + ssm_lib.mamba1_block(h, lp["mixer"], cfg,
-                                         impl=call.ssm_impl)
+            x = _run_layer(call, _mamba1_layer, x, lp, cfg, call)
             continue
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        if cfg.mla:
-            x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
-                                       impl=call.attn_impl,
-                                       chunk=call.attn_chunk)
-        else:
-            x = x + attn.gqa_attention(h, lp["attn"], cfg, positions,
-                                       impl=call.attn_impl,
-                                       prefix_len=prefix_len,
-                                       chunk=call.attn_chunk)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
-        delta, layer_aux = _ffn(h, lp, cfg, call.moe_no_drop)
-        x = x + delta
+        x, layer_aux = _run_layer(call, _decoder_layer, x, lp, cfg,
+                                  positions, prefix_len, call)
         if layer_aux is not None:
             aux = aux + layer_aux
     return unembed(model, cfg, x), aux
+
+
+def loss_fn(model: Transformer, cfg: ModelConfig,
+            batch: Mapping[str, torch.Tensor],
+            call: CallConfig = CallConfig()
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy (text positions only for the vision stub)
+    + MoE aux -> (total, {"nll", "aux"}).  ``batch["labels"]`` (B, S);
+    ``batch["loss_mask"]``, when given, weights the positions (the mean is
+    over its sum, at least 1).  The log-softmax runs in float32 on the
+    float32 logits."""
+    logits, aux = forward(model, cfg, batch, call)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if cfg.frontend and cfg.frontend.kind == "vision_stub":
+        logits = logits[:, -labels.shape[1]:]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.to(torch.long)[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else torch.as_tensor(mask, device=nll.device).to(nll.dtype))
+    nll = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return nll + aux, {"nll": nll, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -4,11 +4,13 @@ Its names are the reference's (``repro.api.__all__``) minus the one
 named list of names whose modules are not ported yet
 (``NOT_YET_PORTED``); its enums and the parameter lists of its public
 callables are pinned here as ``tests/test_api_surface.py`` pins the
-reference's, and held to the reference's signatures.  The one deliberate
-difference: a session or scheduler takes ``device``/``num_clusters``
+reference's, and held to the reference's signatures.  The deliberate
+differences: a session or scheduler takes ``device``/``num_clusters``
 (the logical clusters of one device) where the reference takes
-``devices`` (one device per cluster).  ``repro_torch.core`` exports
-every name ``repro.core`` does.
+``devices`` (one device per cluster), and ``elastic_restore`` takes the
+keyword ``device`` (where the restored state lands) after the
+reference's parameters.  ``repro_torch.core`` exports every name
+``repro.core`` does.
 """
 
 import enum
@@ -40,7 +42,7 @@ def _params(fn):
     return tuple(out)
 
 
-NOT_YET_PORTED = ("elastic_restore",)
+NOT_YET_PORTED = ()
 
 ENUMS = {
     "Staging": ("DIRECT", "HOST_FANOUT", "TREE", "TREE_RESHARD"),
@@ -144,6 +146,11 @@ def test_device_signatures_pinned():
         rest = [tuple(p for p in sig[1:] if p != "num_clusters=")
                 for sig in (ref, expected)]
         assert rest[0] == rest[1], path
+
+
+def test_elastic_restore_signature():
+    assert _params(api.elastic_restore) == _params(r_api.elastic_restore) \
+        + ("device=",)
 
 
 def test_api_import_leaves_jax_out():

@@ -715,7 +715,7 @@ def test_mla_limits_and_require_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
             TM.require_ported(c)
     # a frontend on a state-space family is a mix the port does not build
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         TM.require_ported(dataclasses.replace(
             T.get("falcon-mamba-7b"), frontend=T.get("paligemma-3b").frontend))
     model = T.init_params(cfg, generator=torch.Generator().manual_seed(7))
