@@ -169,9 +169,26 @@ no JAX and nothing of the reference package.
    (relative L2 within 5 %, 32 launches).  It prints step ms (median of
    steps 1-5, CUDA events), tokens/s, AdamW ms, peak memory and the
    checkpoint's seconds beside the card's name and power limit.
-12. The ``kernels:`` line with the counts (the flash kernel's from
-   Yi-9B's, zamba2's, the reduced llama4's, musicgen's and the training
-   phase's runs, the scan's from falcon-mamba's and zamba2's), one JSON
+12. The launch layer (``launch_phase``, ``repro_torch.launch``): the
+   train CLI as a user starts it (``python -m repro_torch.launch.train``,
+   smollm-360m at full width and depth, 8 x 2048 tokens a step, ``--mesh
+   1x1``): run A trains 8 steps with a checkpoint every 3; run B resumes
+   from a copy of A's step-6 checkpoint to step 8, and every array of its
+   step-8 checkpoint must equal A's bit for bit.  Meanwhile the dry-run
+   CLI counts smollm-360m's ``train_4k`` cell on ``meta`` and the report
+   CLI must show its ``ok`` row.  Then the H100 roofline against the
+   card: the CLI's train step counted by ``op_cost`` on ``meta`` and timed
+   (median of 3 steps), its bound at most 1.05 x the step; ``op_cost``'s
+   peak within [0.5, 2] x ``max_memory_allocated`` over the step; the
+   prefill of 8 x 2048 tokens through the flash kernel against
+   ``flashsub.substitute`` of the stub-attention count, bound at most
+   1.05 x measured (128 flash launches in 4 prefills); a bf16 8192^3
+   matmul under ``PEAK_FLOPS_BF16`` and a 4 GB copy under ``HBM_BW``; a
+   checkpoint save and restore timed.
+13. The ``kernels:`` line with the counts (the flash kernel's from
+   Yi-9B's, zamba2's, the reduced llama4's, musicgen's, the training
+   phase's and the launch phase's runs, the scan's from falcon-mamba's
+   and zamba2's), one JSON
    line of the kernels' numbers, the card line, and last ``{"ok": true,
    "device": {...}}``.
 
@@ -186,6 +203,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -323,6 +341,15 @@ TRAIN_EVAL_BATCH = 6
 #: microbatching: the loss at the reference's bar
 #: (tests/test_substrate.py:71), the gradients as a relative L2
 TRAIN_MB_TOL = dict(loss_rel=1e-4, grad_rel_l2=1e-2)
+#: the launch phase: the train CLI's smollm-360m at train_phase's shape,
+#: run A's 8 steps (a checkpoint every 3) and run B resumed at step 6; the
+#: peaks' product and copy; a roofline bound may be at most 1.05 x the
+#: measured time, op_cost's peak within [0.5, 2] x the card's
+LAUNCH_ARCH = "smollm-360m"
+LAUNCH = dict(batch=8, seq=2048, steps=8, ckpt_every=3, resume_at=6,
+              matmul_n=8192, copy_bytes=4_000_000_000)
+LAUNCH_ROOF_MAX = 1.05
+LAUNCH_MEM_RATIO = (0.5, 2.0)
 #: the lint phase: alternating passes of each original and fixed submission
 #: (after one warm pass each)
 LINT_PASSES = 5
@@ -1565,6 +1592,350 @@ def train_phase(check, report, device=None):
           f"bf16 + {f32_ops / 1e12:.2f} f32, bound {ops_ms:.1f} ms; busy "
           f"share {busy['busy_share']:.3f}; launches {launches}", flush=True)
     torch.cuda.empty_cache()
+    return launches
+
+
+def cli_env():
+    """The environment a CLI of the port runs in: this one with the
+    checkout's ``src`` first on the path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def run_cli(module, *args, timeout=600):
+    """``python -m <module> <args>`` from the checkout's root with its
+    ``src`` on the path -> (return code, stdout + stderr, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-u", "-m", module, *args],
+                          capture_output=True, text=True, env=cli_env(),
+                          cwd=ROOT, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr, \
+        time.perf_counter() - t0
+
+
+def same_checkpoints(a, b):
+    """(every array of checkpoint directories ``a`` and ``b`` equal bit for
+    bit and of one dtype, how many arrays, the first that differs)."""
+    import numpy as np
+    files = sorted(f for f in os.listdir(a) if f.endswith(".npz"))
+    if files != sorted(f for f in os.listdir(b) if f.endswith(".npz")):
+        return False, 0, f"files {files}"
+    n = 0
+    for f in files:
+        with np.load(os.path.join(a, f)) as za, np.load(
+                os.path.join(b, f)) as zb:
+            if sorted(za.files) != sorted(zb.files):
+                return False, n, f"{f}: keys differ"
+            for k in za.files:
+                x, y = za[k], zb[k]
+                n += 1
+                if x.dtype != y.dtype or not np.array_equal(x, y):
+                    return False, n, f"{f}:{k}"
+    return True, n, None
+
+
+def launch_phase(check, report, device=None, cli_args=()):
+    """The launch layer on the card (``repro_torch.launch``).
+
+    1. The train CLI at full width and depth, as a user starts it
+       (``python -m repro_torch.launch.train``, smollm-360m, 8 x 2048
+       tokens a step, ``--mesh 1x1``): run A trains 8 steps with a
+       checkpoint every 3 and at the end; run B resumes from a copy of A's
+       step-6 checkpoint to step 8; every array of B's step-8 checkpoint
+       must equal A's bit for bit (a resumed run is the uninterrupted run;
+       both have ``--steps 8``, so one schedule).  Meanwhile the dry-run
+       CLI counts smollm-360m's ``train_4k`` cell on ``meta`` and the
+       report CLI tabulates it (an ``ok`` row).
+    2. The roofline against the card: the CLI's train step (the same
+       shape, config and call) counted by ``op_cost`` on ``meta`` and
+       timed on the card (median of 3 steps, CUDA events), its
+       ``Roofline.bound`` at most 1.05 x the step; ``op_cost``'s tracked
+       peak against ``torch.cuda.max_memory_allocated`` over one step
+       (ratio within [0.5, 2]); the prefill of 8 x 2048 tokens timed with
+       ``attn_impl="auto"`` (the flash kernel: its launches are this
+       phase's count) against ``flashsub.substitute`` of the same prefill
+       counted with the attention stub, bound at most 1.05 x measured; a
+       bf16 8192^3 ``torch.matmul`` at most ``PEAK_FLOPS_BF16`` and a
+       4 GB device copy at most ``HBM_BW``; one checkpoint save and
+       restore of the model and its AdamW state.  Returns the phase's
+       launch counts.  ``device`` and ``cli_args`` (appended to the train
+       CLI's flags) are for a rehearsal on the CPU with the CUDA calls
+       faked (``("--device", "cpu", "--reduced")``)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch import convert
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.data import DataConfig, SyntheticStream, input_specs
+    from repro_torch.kernels import build
+    from repro_torch.launch import flashsub, roofline
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.op_cost import count_cost
+    from repro_torch.models import (
+        CallConfig, count_params, get, init_params, prefill,
+    )
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainConfig, build_train_step
+
+    dev = torch.device(device or "cuda")
+    card = nvidia_smi("name,power.limit")
+    cfg = get(LAUNCH_ARCH)
+    b, s, steps = LAUNCH["batch"], LAUNCH["seq"], LAUNCH["steps"]
+    n_params = count_params(cfg)
+    print(f"== launch: {cfg.name} ({n_params} f32 weights), {b} x {s} "
+          f"tokens a step ({card})", flush=True)
+    work = os.path.join(ROOT, "build", "launch")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    out = {"card": card, "arch": cfg.name, "params": n_params}
+    dry = os.path.join(work, "dryrun")
+    dry_proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "repro_torch.launch.dryrun",
+         "--arch", LAUNCH_ARCH, "--shape", "train_4k", "--out", dry],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=cli_env(), cwd=ROOT)
+    try:
+        # -- 1. the train CLI: A uninterrupted, B resumed from A's step 6 --
+        flags = ("--arch", LAUNCH_ARCH, "--batch", str(b), "--seq", str(s),
+                 "--mesh", "1x1", "--log-every", "1", *cli_args)
+        ckpt_a, ckpt_b = os.path.join(work, "A"), os.path.join(work, "B")
+        rc, text, secs_a = run_cli(
+            "repro_torch.launch.train", *flags, "--steps", str(steps),
+            "--ckpt", ckpt_a, "--ckpt-every", str(LAUNCH["ckpt_every"]))
+        done = f"done: {steps} steps"
+        check(rc == 0 and done in text,
+              f"train CLI run A: rc {rc}, {done!r} "
+              f"{'found' if done in text else 'missing'}:\n{text[-2000:]}")
+        print("\n".join("  A " + ln for ln in text.splitlines()
+                        if ln.startswith("[train]")), flush=True)
+        rate = [float(x) for x in
+                re.findall(r"done: \d+ steps in [0-9.]+s \(([0-9.]+) steps/s",
+                           text)]
+        at = LAUNCH["resume_at"]
+        name = f"step_{at:08d}"
+        if os.path.isdir(os.path.join(ckpt_a, name)):
+            shutil.copytree(os.path.join(ckpt_a, name),
+                            os.path.join(ckpt_b, name))
+        rc, text, secs_b = run_cli(
+            "repro_torch.launch.train", *flags, "--steps", str(steps),
+            "--ckpt", ckpt_b, "--resume")
+        want = (f"resumed step {at} (data index {at})",
+                f"done: {steps - at} steps")
+        check(rc == 0 and all(w in text for w in want),
+              f"train CLI run B: rc {rc}, want {want}:\n{text[-2000:]}")
+        print("\n".join("  B " + ln for ln in text.splitlines()
+                        if ln.startswith("[train]")), flush=True)
+        last = f"step_{steps:08d}"
+        same, n_arrays, first = (
+            same_checkpoints(os.path.join(ckpt_a, last),
+                             os.path.join(ckpt_b, last))
+            if all(os.path.isdir(os.path.join(c, last))
+                   for c in (ckpt_a, ckpt_b)) else (False, 0, "missing"))
+        check(same, f"train CLI: B's resumed step-{steps} checkpoint differs "
+                    f"from A's uninterrupted one ({first}; {n_arrays} arrays "
+                    f"compared)")
+        print(f"  train CLI: run A {secs_a:.1f} s ({rate[0] if rate else 0} "
+              f"steps/s), run B {secs_b:.1f} s; step-{steps} checkpoints "
+              f"of A and B bit-identical: {same} ({n_arrays} arrays)",
+              flush=True)
+        out.update(cli_a_s=secs_a, cli_b_s=secs_b, cli_steps_per_s=rate,
+                   resume_bitwise=same, arrays=n_arrays)
+        shutil.rmtree(ckpt_a, ignore_errors=True)
+        shutil.rmtree(ckpt_b, ignore_errors=True)
+
+        # -- 2. the roofline against the card ------------------------------
+        stream = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                            batch_size=b, seq_len=s, seed=0),
+                                 cfg)
+        tcfg = TrainConfig(base_lr=1e-3, warmup_steps=max(1, steps // 20),
+                           total_steps=steps)
+        specs = input_specs(cfg, mode="train", batch=b, seq=s)
+        mesh = make_mesh((1, 1), ("data", "model"))
+        meta_model = init_params(cfg, device="meta")
+        meta_step = build_train_step(cfg, tcfg, specs, mesh=mesh,
+                                     device="meta")[0]
+        t0 = time.perf_counter()
+        train_cost = count_cost(meta_step, meta_model,
+                                adamw_init(meta_model), specs, 0)
+        count_s = time.perf_counter() - t0
+        tokens = b * s
+        train_roof = roofline.analyze(
+            train_cost, roofline.model_flops_train(n_params, tokens), 1)
+
+        model = init_params(cfg, generator=torch.Generator(device=dev)
+                            .manual_seed(0), device=dev)
+        opt = adamw_init(model)
+        step = build_train_step(cfg, tcfg, specs, mesh=mesh, device=dev)[0]
+        batch = stream.batch(0)
+
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn()
+            end.record()
+            torch.cuda.synchronize()
+            return res, start.elapsed_time(end)
+
+        step(model, opt, batch, 0)                      # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = []
+        for i in range(1, 4):
+            (_, _, m), ms = timed(lambda: step(model, opt, batch, i))
+            step_ms.append(ms)
+        peak_over = torch.cuda.max_memory_allocated() - base
+        loss = float(m["loss"])
+        check(np.isfinite(loss), f"launch: the train step's loss is {loss}")
+        train_ms = statistics.median(step_ms)
+        train_frac = train_roof.bound * 1e3 / train_ms
+        mem_ratio = train_cost.peak_bytes / max(peak_over, 1)
+        check(train_frac <= LAUNCH_ROOF_MAX,
+              f"train step: roofline bound {train_roof.bound * 1e3:.2f} ms "
+              f"is {train_frac:.3f} of the measured {train_ms:.2f} ms "
+              f"(at most {LAUNCH_ROOF_MAX}): a constant or the counter is "
+              f"wrong")
+        check(LAUNCH_MEM_RATIO[0] <= mem_ratio <= LAUNCH_MEM_RATIO[1],
+              f"train step: op_cost's peak {train_cost.peak_bytes:.4g} B "
+              f"against {peak_over} B allocated over the step's start: "
+              f"ratio {mem_ratio:.3f} outside {LAUNCH_MEM_RATIO}")
+        print(f"  train step ({card}): {train_ms:.1f} ms (median of "
+              f"{step_ms}); counted {train_cost.flops:.4g} FLOP, "
+              f"{train_cost.bytes:.4g} B in {count_s:.1f} s on meta; bound "
+              f"{train_roof.bound * 1e3:.2f} ms ({train_roof.bottleneck}), "
+              f"{train_frac:.3f} of the step; op_cost peak "
+              f"{train_cost.peak_bytes:.4g} B / max_memory_allocated over "
+              f"the start {peak_over} B = {mem_ratio:.3f}", flush=True)
+
+        # -- one checkpoint save and restore of the trained state ----------
+        ckpt = os.path.join(work, "S")
+        t0 = time.perf_counter()
+        save(ckpt, 1, {"params": convert.model_params_to_numpy(model, cfg),
+                       "opt": convert.adamw_state_to_numpy(opt, cfg)})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, state = restore(ckpt, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del state, opt
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # -- the prefill: the flash kernel against the substituted stub ----
+        pbatch = {"tokens": batch["tokens"]}
+        meta_tokens = {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                             device="meta")}
+        with torch.no_grad():
+            stub_cost = count_cost(prefill, meta_model, cfg, meta_tokens, s,
+                                   CallConfig(attn_impl="stub"))
+        stub_roof = roofline.analyze(
+            stub_cost, roofline.model_flops_forward(n_params, tokens), 1)
+        flash_roof = flashsub.substitute(
+            stub_roof, flashsub.attn_shape_for(cfg, "prefill", s, b))
+        tok = torch.as_tensor(pbatch["tokens"], device=dev)
+        call = CallConfig(attn_impl="auto")
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            build.reset_counts()
+            logits, _ = prefill(model, cfg, {"tokens": tok}, s, call)
+            prefill_ms = [timed(lambda: prefill(model, cfg, {"tokens": tok},
+                                                s, call))[1]
+                          for _ in range(3)]
+            torch.cuda.synchronize()
+            launches = build.launch_counts()
+        flash = launches["flash_attention"]
+        check(flash == 4 * cfg.n_layers,
+              f"launch prefill: {flash} flash launches in 4 prefills, not "
+              f"{4 * cfg.n_layers}")
+        check(bool(torch.isfinite(logits).all()),
+              "launch prefill: logits not finite")
+        pre_ms = statistics.median(prefill_ms)
+        pre_frac = flash_roof.bound * 1e3 / pre_ms
+        check(pre_frac <= LAUNCH_ROOF_MAX,
+              f"prefill: flash-substituted bound {flash_roof.bound * 1e3:.2f}"
+              f" ms is {pre_frac:.3f} of the measured {pre_ms:.2f} ms (at "
+              f"most {LAUNCH_ROOF_MAX})")
+        print(f"  prefill {b} x {s} ({card}): {pre_ms:.2f} ms (median of "
+              f"{prefill_ms}), {flash} flash launches in 4 prefills; stub "
+              f"counted {stub_cost.flops:.4g} FLOP, {stub_cost.bytes:.4g} B; "
+              f"flash-substituted bound {flash_roof.bound * 1e3:.2f} ms "
+              f"({flash_roof.bottleneck}), {pre_frac:.3f} of the prefill",
+              flush=True)
+        del model, logits, meta_model
+        torch.cuda.empty_cache()
+
+        # -- the peaks: a bf16 product and a device copy ---------------------
+        n = LAUNCH["matmul_n"]
+        x = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+        y = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
+        torch.matmul(x, y)
+        mm_ms = statistics.median(timed(lambda: torch.matmul(x, y))[1]
+                                  for _ in range(5))
+        mm_rate = 2 * n ** 3 / (mm_ms / 1e3)
+        del x, y
+        src = torch.empty(LAUNCH["copy_bytes"] // 4, device=dev,
+                          dtype=torch.float32).fill_(1.0)
+        dst = torch.empty_like(src)
+        dst.copy_(src)
+        cp_ms = statistics.median(timed(lambda: dst.copy_(src))[1]
+                                  for _ in range(5))
+        cp_rate = 2 * src.numel() * 4 / (cp_ms / 1e3)
+        del src, dst
+        torch.cuda.empty_cache()
+        mm_ratio = mm_rate / roofline.PEAK_FLOPS_BF16
+        cp_ratio = cp_rate / roofline.HBM_BW
+        check(mm_ratio <= 1.0,
+              f"a bf16 {n}^3 matmul ran at {mm_rate:.4g} FLOP/s, above "
+              f"PEAK_FLOPS_BF16 {roofline.PEAK_FLOPS_BF16:.4g}")
+        check(cp_ratio <= 1.0,
+              f"a device copy moved {cp_rate:.4g} B/s, above HBM_BW "
+              f"{roofline.HBM_BW:.4g}")
+        print(f"  peaks ({card}): bf16 {n}^3 matmul {mm_ms:.3f} ms = "
+              f"{mm_rate / 1e12:.1f} TFLOP/s, {mm_ratio:.3f} of "
+              f"PEAK_FLOPS_BF16; {LAUNCH['copy_bytes'] / 1e9:.1f} GB copy "
+              f"{cp_ms:.3f} ms = {cp_rate / 1e12:.3f} TB/s read + write, "
+              f"{cp_ratio:.3f} of HBM_BW", flush=True)
+
+        # -- the dry-run and report CLIs (started at the phase's start) -----
+        dry_text, _ = dry_proc.communicate(timeout=600)
+        rc, rep, _ = run_cli("repro_torch.launch.report", dry)
+        row = f"| {LAUNCH_ARCH} | train_4k | ok "
+        check(dry_proc.returncode == 0 and rc == 0 and row in rep,
+              f"dry-run rc {dry_proc.returncode}, report rc {rc}, row "
+              f"{row!r} {'found' if row in rep else 'missing'}:\n"
+              f"{dry_text[-1500:]}\n{rep[-1500:]}")
+        print("  dry-run CLI: " + " / ".join(
+            ln.strip() for ln in dry_text.splitlines()
+            if ln.strip().startswith(("roofline:", "op_cost:"))), flush=True)
+        print("\n".join("  report: " + ln for ln in rep.splitlines()
+                        if ln.strip()), flush=True)
+    finally:
+        if dry_proc.poll() is None:
+            dry_proc.kill()
+            dry_proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    out.update(
+        train_ms=train_ms, train_steps_ms=step_ms, train_count_s=count_s,
+        train_roofline=train_roof.to_dict(),
+        train_bound_ms=train_roof.bound * 1e3, train_fraction=train_frac,
+        train_peak_counted=train_cost.peak_bytes, train_peak_card=peak_over,
+        memory_ratio=mem_ratio, save_s=save_s, restore_s=restore_s,
+        prefill_ms=pre_ms, prefill_runs_ms=prefill_ms,
+        prefill_stub=stub_roof.to_dict(), prefill_flash=flash_roof.to_dict(),
+        prefill_bound_ms=flash_roof.bound * 1e3, prefill_fraction=pre_frac,
+        matmul_ms=mm_ms, matmul_ratio=mm_ratio, copy_ms=cp_ms,
+        copy_ratio=cp_ratio, launches=launches)
+    report["launch"] = out
+    print(f"  launch ({card}): train step {train_ms:.1f} ms, bound "
+          f"{train_roof.bound * 1e3:.2f} ms ({train_frac:.3f}); CLI "
+          f"{rate} steps/s; prefill {pre_ms:.2f} ms, bound "
+          f"{flash_roof.bound * 1e3:.2f} ms ({pre_frac:.3f}); memory ratio "
+          f"{mem_ratio:.3f}; save {save_s:.2f} s, restore {restore_s:.2f} s; "
+          f"launches {launches}", flush=True)
     return launches
 
 
@@ -3553,12 +3924,19 @@ def main() -> int:
     train_launches = train_phase(check, report)
     torch.cuda.empty_cache()
 
-    # -- 12. what the main paths launched, and the result lines --------------
+    # -- 12. the launch layer: the train CLI at full width (run, resume, the
+    #        same bits), the dry-run and report CLIs, the H100 roofline
+    #        against the card (the prefill through the flash kernel) -------
+    launch_launches = launch_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 13. what the main paths launched, and the result lines --------------
     launches["flash_attention"] = (serve_launches["flash_attention"]
                                    + hybrid_launches["flash_attention"]
                                    + moe_launches["flash_attention"]
                                    + frontend_launches["flash_attention"]
-                                   + train_launches["flash_attention"])
+                                   + train_launches["flash_attention"]
+                                   + launch_launches["flash_attention"])
     launches["ssm_scan"] = (ssm_launches["ssm_scan"]
                             + hybrid_launches["ssm_scan"])
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())

@@ -66,8 +66,8 @@ from repro_torch.models.layers import (
 
 Cache = Dict[str, Any]
 
-#: what the port builds, and the ROADMAP item that comes next
-_WAITS = "ROADMAP.md Queue 1 item 7 (launch/) is next"
+#: what the port builds, and why a mix of families is refused
+_MIXED = "the reference never combines these parts"
 _BUILDS = ("the port builds every family of the registry: dense, moe (GQA "
            "or MLA), ssm, hybrid, and the vlm and audio frontends on "
            "decoder layers")
@@ -101,11 +101,10 @@ def require_ported(cfg: ModelConfig) -> None:
         if present is not None:
             raise NotImplementedError(
                 f"{cfg.name}: the {what} part of a {cfg.family} model is not "
-                f"ported; {_BUILDS} ({_WAITS})")
+                f"ported; {_BUILDS} ({_MIXED})")
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; {_BUILDS} "
-            f"({_WAITS})")
+            f"{cfg.name}: family {cfg.family!r} is not ported; {_BUILDS}")
 
 
 def prefix_tokens(cfg: ModelConfig) -> int:

@@ -511,7 +511,7 @@ def test_require_ported_admits_the_hybrid_with_mamba2_only():
            dataclasses.replace(T.get("yi-9b"), hybrid=cfg.hybrid)]
     for c in bad:
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 7"):
+                           match="the reference never combines"):
             TM.require_ported(c)
 
 
