@@ -185,7 +185,30 @@ no JAX and nothing of the reference package.
    1.05 x measured (128 flash launches in 4 prefills); a bf16 8192^3
    matmul under ``PEAK_FLOPS_BF16`` and a 4 GB copy under ``HBM_BW``; a
    checkpoint save and restore timed.
-13. The ``kernels:`` line with the counts (the flash kernel's from
+13. The chunked attention's per-chunk remat (``chunk_remat_phase``,
+   ``CallConfig.attn_chunk_remat``): smollm-360m at full width and depth,
+   4 x 4096 tokens a step (the ``train_4k`` cells' sequence) through
+   ``build_train_step`` with the train CLI's config, the chunked attention
+   (chunks of 512) under layer remat, the knob off and on, steps
+   alternated after a warm-up each (median of 3, CUDA events): step ms,
+   tokens/s, ``max_memory_allocated`` over each step's start, ``op_cost``'s
+   FLOPs, bytes and peak of the same step on ``meta`` and the roofline's
+   bound over the step (at most 1.05); the loss the same bits and the
+   gradients of one step within 1e-5 relative L2, off against on; one
+   decoder layer's forward and backward, its peak off against on; the
+   peaks lower and the counted FLOPs higher with the knob on; no kernel
+   launch (the kernels have no backward).
+14. The walkthroughs (``examples_phase``): the five ``examples/torch_*.py``
+   started together, each a process of its own with ``--device cuda``;
+   rc 0 and their printed facts (every ``allclose=True``, OFL001, the
+   bit-identical autofix, the resume, a falling loss); each process's
+   axpy, flash and scan launches counted (not part of the main paths'
+   counts below); the serving walkthrough's three models rebuilt here,
+   every flash and scan call of their prefill (head dim 32, 16 query
+   rows, one 16-token scan chunk) held against the plain version on its
+   own inputs, as many as the walkthrough launched, and the prefill
+   logits, kernels against plain versions.
+15. The ``kernels:`` line with the counts (the flash kernel's from
    Yi-9B's, zamba2's, the reduced llama4's, musicgen's, the training
    phase's and the launch phase's runs, the scan's from falcon-mamba's
    and zamba2's), one JSON
@@ -350,6 +373,19 @@ LAUNCH = dict(batch=8, seq=2048, steps=8, ckpt_every=3, resume_at=6,
               matmul_n=8192, copy_bytes=4_000_000_000)
 LAUNCH_ROOF_MAX = 1.05
 LAUNCH_MEM_RATIO = (0.5, 2.0)
+#: the chunked attention's per-chunk remat: smollm-360m at the train_4k
+#: cells' sequence, 4 x 4096 tokens a step (the 16,384 of train_phase's 8 x
+#: 2048), the train CLI's config; steps alternated off / on after one
+#: warm-up each; the two settings' gradients of one step as a relative L2
+#: (the forward and loss are the same bits; atomics in the embedding's
+#: backward may reorder sums)
+CHUNK_REMAT_ARCH = "smollm-360m"
+CHUNK_REMAT = dict(batch=4, seq=4096, chunk=512, steps=3)
+CHUNK_REMAT_GRAD_REL = 1e-5
+#: the walkthroughs of the port, each run as a script on the card (all
+#: but the model validation, which touches no device, with ``--device``)
+EXAMPLES = ("torch_offload_model_validation", "torch_quickstart",
+            "torch_job_graph", "torch_serve_batch", "torch_train_lm")
 #: the lint phase: alternating passes of each original and fixed submission
 #: (after one warm pass each)
 LINT_PASSES = 5
@@ -430,6 +466,78 @@ def flash_work(q_shape, kv_shape, causal, itemsize):
     return nbytes, 4 * b * hq * pairs * d
 
 
+def held_attention(check, report, q, k, v, causal, tag):
+    """The flash kernel on ``q, k, v`` against ``ref.attention`` on the
+    same inputs within ``FLASH_TOL``, recorded and checked; returns the
+    largest error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    got = ops.attention(q, k, v, causal=causal, impl="kernel")
+    want = ref.attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[str(q.dtype).split(".")[1]]
+    g, w = got.double(), want.double()
+    err = (g - w).abs().max().item()
+    ok = (got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(g).all())
+          and bool(((g - w).abs() <= tol["atol"]
+                    + tol["rtol"] * w.abs()).all()))
+    qs, ks = list(q.shape), list(k.shape)
+    sq, skv = qs[2], ks[2]
+    if causal and sq > skv:
+        # rows that see no column: the mean of V, as ref.attention
+        mean = v.double().mean(dim=2, keepdim=True).repeat_interleave(
+            qs[1] // ks[1], dim=1).expand(-1, -1, sq - skv, -1)
+        e = (g[:, :, :sq - skv] - mean).abs()
+        ok = ok and bool((e <= tol["atol"]
+                          + tol["rtol"] * mean.abs()).all())
+    report["kernel_checks"].append(
+        {"kernel": "flash_attention", "tag": tag, "dtype": str(q.dtype),
+         "shapes": [qs, ks], "causal": causal,
+         "max_abs_err": err, "tol": tol, "ok": ok})
+    check(ok, f"flash_attention {tag} q{qs} kv{ks} {q.dtype} "
+              f"causal={causal}: max_abs_err {err:.3g} outside {tol}")
+    return err
+
+
+def held_scan(check, report, a, b, c, h0, tag, return_state=None):
+    """The scan kernel on ``a, b, c`` (and ``h0``) against
+    ``ref.ssm_scan`` on the same inputs within ``SCAN_TOL`` (the final
+    state, f32, at the f32 bar), recorded, checked and printed; the state
+    is returned when ``return_state`` says so (by default, with ``h0``).
+    Returns the larger error."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    state = h0 is not None if return_state is None else return_state
+    got = ops.ssm_scan(a, b, c, h0=h0, return_state=state, impl="kernel")
+    want = ref.ssm_scan(a, b, c, h0=h0, return_state=state)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if state else [(got, want)]
+    tol = SCAN_TOL[str(a.dtype).split(".")[1]]
+    ok, err = True, 0.0
+    for i, (g, w) in enumerate(pairs):
+        t = tol if i == 0 else SCAN_TOL["float32"]   # the state is f32
+        g64, w64 = g.double(), w.double()
+        e = (g64 - w64).abs().max().item()
+        err = max(err, e)
+        ok = ok and (g.shape == w.shape and g.dtype == w.dtype
+                     and bool(torch.isfinite(g64).all())
+                     and bool(((g64 - w64).abs() <= t["atol"]
+                               + t["rtol"] * w64.abs()).all()))
+    shape = list(a.shape)
+    report["kernel_checks"].append(
+        {"kernel": "ssm_scan", "tag": tag, "dtype": str(a.dtype),
+         "shapes": [shape, list(c.shape)], "h0": h0 is not None,
+         "state": state, "max_abs_err": err, "tol": tol, "ok": ok})
+    check(ok, f"ssm_scan {tag} {shape} {a.dtype} h0={h0 is not None}: "
+              f"max_abs_err {err:.3g} outside {tol}")
+    print(f"  {tag:14s} {shape} {str(a.dtype):14s} h0={h0 is not None!s:5s}: "
+          f"max_abs_err {err:.3g}", flush=True)
+    return err
+
+
 def flash_phase(check, report, time_ms):
     """The flash kernel against ``ref.attention`` on the card, and its
     times at the serving phase's prefill shape.  Returns that shape's row
@@ -449,31 +557,7 @@ def flash_phase(check, report, time_ms):
 
     def compare(qs, ks, dtype, causal, tag):
         q, k, v = rnd(qs, dtype), rnd(ks, dtype), rnd(ks, dtype)
-        got = ops.attention(q, k, v, causal=causal, impl="kernel")
-        want = ref.attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        tol = FLASH_TOL[str(dtype).split(".")[1]]
-        g, w = got.double(), want.double()
-        err = (g - w).abs().max().item()
-        ok = (got.shape == want.shape and got.dtype == want.dtype
-              and bool(torch.isfinite(g).all())
-              and bool(((g - w).abs() <= tol["atol"]
-                        + tol["rtol"] * w.abs()).all()))
-        sq, skv = qs[2], ks[2]
-        if causal and sq > skv:
-            # rows that see no column: the mean of V, as ref.attention
-            mean = v.double().mean(dim=2, keepdim=True).repeat_interleave(
-                qs[1] // ks[1], dim=1).expand(-1, -1, sq - skv, -1)
-            e = (g[:, :, :sq - skv] - mean).abs()
-            ok = ok and bool((e <= tol["atol"]
-                              + tol["rtol"] * mean.abs()).all())
-        report["kernel_checks"].append(
-            {"kernel": "flash_attention", "tag": tag, "dtype": str(dtype),
-             "shapes": [list(qs), list(ks)], "causal": causal,
-             "max_abs_err": err, "tol": tol, "ok": ok})
-        check(ok, f"flash_attention {tag} q{list(qs)} kv{list(ks)} {dtype} "
-                  f"causal={causal}: max_abs_err {err:.3g} outside {tol}")
-        return (q, k, v), err
+        return (q, k, v), held_attention(check, report, q, k, v, causal, tag)
 
     print("== flash attention against ref.attention", flush=True)
     cases = []
@@ -831,37 +915,6 @@ def scan_phase(check, report, time_ms):
     rng = np.random.default_rng(44)
     f32, bf16 = torch.float32, torch.bfloat16
 
-    def compare(a, b, c, h0, tag):
-        """y (and the final state, with h0) of the kernel against the
-        plain version; returns the larger error."""
-        state = h0 is not None
-        got = ops.ssm_scan(a, b, c, h0=h0, return_state=state,
-                           impl="kernel")
-        want = ref.ssm_scan(a, b, c, h0=h0, return_state=state)
-        torch.cuda.synchronize()
-        pairs = list(zip(got, want)) if state else [(got, want)]
-        tol = SCAN_TOL[str(a.dtype).split(".")[1]]
-        ok, err = True, 0.0
-        for i, (g, w) in enumerate(pairs):
-            t = tol if i == 0 else SCAN_TOL["float32"]   # the state is f32
-            g64, w64 = g.double(), w.double()
-            e = (g64 - w64).abs().max().item()
-            err = max(err, e)
-            ok = ok and (g.shape == w.shape and g.dtype == w.dtype
-                         and bool(torch.isfinite(g64).all())
-                         and bool(((g64 - w64).abs() <= t["atol"]
-                                   + t["rtol"] * w64.abs()).all()))
-        shape = list(a.shape)
-        report["kernel_checks"].append(
-            {"kernel": "ssm_scan", "tag": tag, "dtype": str(a.dtype),
-             "shapes": [shape, list(c.shape)], "h0": state,
-             "max_abs_err": err, "tol": tol, "ok": ok})
-        check(ok, f"ssm_scan {tag} {shape} {a.dtype} h0={state}: "
-                  f"max_abs_err {err:.3g} outside {tol}")
-        print(f"  {tag:14s} {shape} {str(a.dtype):14s} h0={state!s:5s}: "
-              f"max_abs_err {err:.3g}", flush=True)
-        return err
-
     def inputs(shape, dtype):
         bsz, s, d, n = shape
         a = rng.uniform(0.7, 0.999, shape)     # decays in (0, 1)
@@ -883,8 +936,8 @@ def scan_phase(check, report, time_ms):
              ((2, 33, 37, 8), bf16, "bf16 D=37")]
     for shape, dtype, tag in cases:
         a, b, c, h0 = inputs(shape, dtype)
-        compare(a, b, c, None, tag)
-        compare(a, b, c, h0, tag)
+        held_scan(check, report, a, b, c, None, tag)
+        held_scan(check, report, a, b, c, h0, tag)
 
     def timed(shape, tag):
         """The kernel at one chunk of a prefill, h0 given and the final
@@ -896,7 +949,7 @@ def scan_phase(check, report, time_ms):
         b = torch.randn(shape, generator=g, device=dev) * 0.1
         c = torch.randn((bsz, chunk, n), generator=g, device=dev)
         h0 = torch.randn((bsz, d, n), generator=g, device=dev)
-        err = compare(a, b, c, h0, tag)
+        err = held_scan(check, report, a, b, c, h0, tag)
         nbytes, nops = scan_work(shape, 4, True, True)
 
         def kernel(a, b, c, h0):
@@ -1410,15 +1463,6 @@ def train_phase(check, report, device=None):
     ckpt = os.path.join(ROOT, "build", "train_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
 
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
     rows, saved = [], None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1429,7 +1473,7 @@ def train_phase(check, report, device=None):
                      "opt": convert.adamw_state_to_numpy(opt, cfg)}
             save(ckpt, TRAIN_SAVE, saved, specs, data_index=TRAIN_SAVE)
             save_s = time.perf_counter() - t0
-        (_, opt, m), ms = timed(lambda: step(model, opt, batches[i], i))
+        (_, opt, m), ms = event_timed(lambda: step(model, opt, batches[i], i))
         row = {"step": i, "ms": ms, **{k: float(m[k]) for k in
                                        ("loss", "lr", "grad_norm")}}
         rows.append(row)
@@ -1479,7 +1523,8 @@ def train_phase(check, report, device=None):
               "count": opt["count"].clone()}
     lr = torch.full((), 1e-3, dtype=torch.float32, device=dev)
     adamw_ms = statistics.median(
-        timed(lambda: adamw_update(g1, o_copy, p_copy, lr, tcfg.adamw))[1]
+        event_timed(lambda: adamw_update(g1, o_copy, p_copy, lr,
+                                           tcfg.adamw))[1]
         for _ in range(5))
     del g1, p_copy, o_copy
     torch.cuda.empty_cache()
@@ -1604,15 +1649,43 @@ def cli_env():
     return env
 
 
-def run_cli(module, *args, timeout=600):
-    """``python -m <module> <args>`` from the checkout's root with its
-    ``src`` on the path -> (return code, stdout + stderr, seconds)."""
+def run_py(*argv, timeout=600):
+    """``python -u <argv>`` from the checkout's root with its ``src`` on
+    the path -> (return code, stdout + stderr, seconds)."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-u", "-m", module, *args],
+    proc = subprocess.run([sys.executable, "-u", *argv],
                           capture_output=True, text=True, env=cli_env(),
                           cwd=ROOT, timeout=timeout)
     return proc.returncode, proc.stdout + proc.stderr, \
         time.perf_counter() - t0
+
+
+def run_cli(module, *args, timeout=600):
+    """``python -m <module> <args>``, as :func:`run_py`."""
+    return run_py("-m", module, *args, timeout=timeout)
+
+
+def event_timed(fn):
+    """(fn's result, the ms between CUDA events around it)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(end)
+
+
+def peak_over(fn):
+    """(fn's result, ms, the peak bytes allocated over the allocation at
+    its start)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, ms = event_timed(fn)
+    return res, ms, torch.cuda.max_memory_allocated() - base
 
 
 def same_checkpoints(a, b):
@@ -1770,29 +1843,19 @@ def launch_phase(check, report, device=None, cli_args=()):
         step = build_train_step(cfg, tcfg, specs, mesh=mesh, device=dev)[0]
         batch = stream.batch(0)
 
-        def timed(fn):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            res = fn()
-            end.record()
-            torch.cuda.synchronize()
-            return res, start.elapsed_time(end)
-
         step(model, opt, batch, 0)                      # warm-up
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        step_ms = []
+        step_ms, peaks = [], []
         for i in range(1, 4):
-            (_, _, m), ms = timed(lambda: step(model, opt, batch, i))
+            (_, _, m), ms, peak = peak_over(
+                lambda: step(model, opt, batch, i))
             step_ms.append(ms)
-        peak_over = torch.cuda.max_memory_allocated() - base
+            peaks.append(peak)
+        step_peak = max(peaks)
         loss = float(m["loss"])
         check(np.isfinite(loss), f"launch: the train step's loss is {loss}")
         train_ms = statistics.median(step_ms)
         train_frac = train_roof.bound * 1e3 / train_ms
-        mem_ratio = train_cost.peak_bytes / max(peak_over, 1)
+        mem_ratio = train_cost.peak_bytes / max(step_peak, 1)
         check(train_frac <= LAUNCH_ROOF_MAX,
               f"train step: roofline bound {train_roof.bound * 1e3:.2f} ms "
               f"is {train_frac:.3f} of the measured {train_ms:.2f} ms "
@@ -1800,7 +1863,7 @@ def launch_phase(check, report, device=None, cli_args=()):
               f"wrong")
         check(LAUNCH_MEM_RATIO[0] <= mem_ratio <= LAUNCH_MEM_RATIO[1],
               f"train step: op_cost's peak {train_cost.peak_bytes:.4g} B "
-              f"against {peak_over} B allocated over the step's start: "
+              f"against {step_peak} B allocated over the step's start: "
               f"ratio {mem_ratio:.3f} outside {LAUNCH_MEM_RATIO}")
         print(f"  train step ({card}): {train_ms:.1f} ms (median of "
               f"{step_ms}); counted {train_cost.flops:.4g} FLOP, "
@@ -1808,7 +1871,7 @@ def launch_phase(check, report, device=None, cli_args=()):
               f"{train_roof.bound * 1e3:.2f} ms ({train_roof.bottleneck}), "
               f"{train_frac:.3f} of the step; op_cost peak "
               f"{train_cost.peak_bytes:.4g} B / max_memory_allocated over "
-              f"the start {peak_over} B = {mem_ratio:.3f}", flush=True)
+              f"the start {step_peak} B = {mem_ratio:.3f}", flush=True)
 
         # -- one checkpoint save and restore of the trained state ----------
         ckpt = os.path.join(work, "S")
@@ -1841,7 +1904,7 @@ def launch_phase(check, report, device=None, cli_args=()):
             torch.cuda.synchronize()
             build.reset_counts()
             logits, _ = prefill(model, cfg, {"tokens": tok}, s, call)
-            prefill_ms = [timed(lambda: prefill(model, cfg, {"tokens": tok},
+            prefill_ms = [event_timed(lambda: prefill(model, cfg, {"tokens": tok},
                                                 s, call))[1]
                           for _ in range(3)]
             torch.cuda.synchronize()
@@ -1872,7 +1935,7 @@ def launch_phase(check, report, device=None, cli_args=()):
         x = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
         y = torch.randn((n, n), device=dev, dtype=torch.bfloat16)
         torch.matmul(x, y)
-        mm_ms = statistics.median(timed(lambda: torch.matmul(x, y))[1]
+        mm_ms = statistics.median(event_timed(lambda: torch.matmul(x, y))[1]
                                   for _ in range(5))
         mm_rate = 2 * n ** 3 / (mm_ms / 1e3)
         del x, y
@@ -1880,7 +1943,7 @@ def launch_phase(check, report, device=None, cli_args=()):
                           dtype=torch.float32).fill_(1.0)
         dst = torch.empty_like(src)
         dst.copy_(src)
-        cp_ms = statistics.median(timed(lambda: dst.copy_(src))[1]
+        cp_ms = statistics.median(event_timed(lambda: dst.copy_(src))[1]
                                   for _ in range(5))
         cp_rate = 2 * src.numel() * 4 / (cp_ms / 1e3)
         del src, dst
@@ -1922,7 +1985,7 @@ def launch_phase(check, report, device=None, cli_args=()):
         train_ms=train_ms, train_steps_ms=step_ms, train_count_s=count_s,
         train_roofline=train_roof.to_dict(),
         train_bound_ms=train_roof.bound * 1e3, train_fraction=train_frac,
-        train_peak_counted=train_cost.peak_bytes, train_peak_card=peak_over,
+        train_peak_counted=train_cost.peak_bytes, train_peak_card=step_peak,
         memory_ratio=mem_ratio, save_s=save_s, restore_s=restore_s,
         prefill_ms=pre_ms, prefill_runs_ms=prefill_ms,
         prefill_stub=stub_roof.to_dict(), prefill_flash=flash_roof.to_dict(),
@@ -1937,6 +2000,362 @@ def launch_phase(check, report, device=None, cli_args=()):
           f"{mem_ratio:.3f}; save {save_s:.2f} s, restore {restore_s:.2f} s; "
           f"launches {launches}", flush=True)
     return launches
+
+
+def chunk_remat_phase(check, report, device=None):
+    """``CallConfig.attn_chunk_remat`` on the card: smollm-360m at its
+    published width and depth, 4 x 4096 tokens a step through
+    ``build_train_step`` with the train CLI's config (lr 1e-3, warmup 1,
+    AdamW), the chunked attention (chunks of 512) under layer remat, the
+    knob off and on.
+
+    1. One warm-up step each, then ``CHUNK_REMAT["steps"]`` timed steps
+       each, alternated off / on (CUDA events; median): step ms, tokens/s
+       and ``max_memory_allocated`` over each step's start.
+    2. ``op_cost``'s FLOPs, bytes and peak of the same step on ``meta``,
+       and the H100 roofline's bound over the measured step (at most
+       ``LAUNCH_ROOF_MAX``).
+    3. One step's loss and gradients with the knob off and on, on the same
+       weights and batch: the losses the same bits, the gradients within
+       ``CHUNK_REMAT_GRAD_REL`` relative L2.
+    4. One decoder layer's forward and backward under remat (the step's
+       own peak is set by the loss's (4, 4096, 49152) f32 tensors once the
+       knob is on): its peak over its start, off against on.
+
+    The peak must be lower and the counted FLOPs higher with the knob on.
+    No kernel runs (the kernels have no backward): the launch counts over
+    the phase stay 0.  ``device`` is for a rehearsal on the CPU with the
+    CUDA calls faked."""
+    import numpy as np
+    import torch
+    from repro_torch.data import DataConfig, SyntheticStream, input_specs
+    from repro_torch.kernels import build
+    from repro_torch.launch import roofline
+    from repro_torch.launch.op_cost import count_cost
+    from repro_torch.models import CallConfig, count_params, get, init_params
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (
+        TrainConfig, build_train_step, grads_with_microbatching,
+    )
+
+    dev = torch.device(device or "cuda")
+    card = nvidia_smi("name,power.limit")
+    cfg = get(CHUNK_REMAT_ARCH)
+    b, s = CHUNK_REMAT["batch"], CHUNK_REMAT["seq"]
+    tokens = b * s
+    n_params = count_params(cfg)
+    print(f"== chunk remat: {cfg.name} ({n_params} f32 weights), {b} x {s} "
+          f"tokens a step, chunks of {CHUNK_REMAT['chunk']} ({card})",
+          flush=True)
+    t_phase = time.perf_counter()
+    specs = input_specs(cfg, mode="train", batch=b, seq=s)
+    batch = SyntheticStream(DataConfig(vocab_size=cfg.vocab_size,
+                                       batch_size=b, seq_len=s, seed=0),
+                            cfg).batch(0)
+    settings = (False, True)
+    calls = {knob: CallConfig(attn_impl="chunked",
+                              attn_chunk=CHUNK_REMAT["chunk"],
+                              ssm_impl="plain", remat=True,
+                              attn_chunk_remat=knob) for knob in settings}
+    tcfgs = {knob: TrainConfig(base_lr=1e-3, warmup_steps=1,
+                               total_steps=8, call=calls[knob])
+             for knob in settings}
+
+    # -- op_cost of each setting's step on meta -------------------------
+    meta_model = init_params(cfg, device="meta")
+    counted, roofs = {}, {}
+    for knob in settings:
+        meta_step = build_train_step(cfg, tcfgs[knob], specs,
+                                     device="meta")[0]
+        counted[knob] = count_cost(meta_step, meta_model,
+                                   adamw_init(meta_model), specs, 0)
+        roofs[knob] = roofline.analyze(
+            counted[knob], roofline.model_flops_train(n_params, tokens), 1)
+    del meta_model
+
+    model = init_params(cfg, generator=torch.Generator(device=dev)
+                        .manual_seed(0), device=dev)
+    opt = adamw_init(model, tcfgs[False].adamw)
+    steps = {knob: build_train_step(cfg, tcfgs[knob], specs, device=dev)[0]
+             for knob in settings}
+    torch.cuda.synchronize()
+    build.reset_counts()
+    ms = {knob: [] for knob in settings}
+    peaks = {knob: [] for knob in settings}
+    losses = {knob: [] for knob in settings}
+    for i in range(1 + CHUNK_REMAT["steps"]):
+        for knob in settings:
+            (_, _, m), t, peak = peak_over(
+                lambda: steps[knob](model, opt, batch, i))
+            losses[knob].append(float(m["loss"]))
+            if i:                                   # after the warm-up
+                ms[knob].append(t)
+                peaks[knob].append(peak)
+    check(all(np.isfinite(v) for knob in settings for v in losses[knob]),
+          f"chunk remat: a loss is not finite: {losses}")
+
+    # -- one step's loss and gradients, off against on ------------------
+    grads = {knob: grads_with_microbatching(cfg, calls[knob], 1)(
+        model, {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        for knob in settings}
+    (l_off, g_off), (l_on, g_on) = grads[False], grads[True]
+    num = sum(float(torch.sum((g_on[n] - g_off[n]) ** 2)) for n in g_off)
+    den = sum(float(torch.sum(g_off[n] ** 2)) for n in g_off)
+    grad_rel = (num / den) ** 0.5
+    check(float(l_on) == float(l_off),
+          f"chunk remat: the loss with the knob on {float(l_on)!r}, off "
+          f"{float(l_off)!r}")
+    check(grad_rel <= CHUNK_REMAT_GRAD_REL,
+          f"chunk remat: gradients on vs off rel L2 {grad_rel:.3g} (bar "
+          f"{CHUNK_REMAT_GRAD_REL})")
+    del grads, g_off, g_on
+
+    # -- one decoder layer's forward and backward -----------------------
+    lp = model.layer_params(0)
+    x0 = torch.randn((b, s, cfg.d_model), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1)
+                     ).to(torch.bfloat16)
+    positions = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
+        b, s)
+
+    def layer(knob):
+        x = x0.detach().requires_grad_(True)
+        y, _ = model_lib._run_layer(calls[knob], model_lib._decoder_layer, x,
+                                    lp, cfg, positions, 0, calls[knob])
+        y.float().sum().backward()
+        return x.grad
+
+    layer_peak, layer_ms = {}, {}
+    for knob in settings:
+        layer(knob)                                 # warm-up
+        model.zero_grad(set_to_none=True)
+        _, layer_ms[knob], layer_peak[knob] = peak_over(lambda: layer(knob))
+        model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    launches = build.launch_counts()
+    check(not any(launches.values()),
+          f"chunk remat: a kernel launched under autograd: {launches}")
+    del model, opt, x0
+    torch.cuda.empty_cache()
+
+    out = {"card": card, "arch": cfg.name, "params": n_params,
+           "batch": b, "seq": s, "chunk": CHUNK_REMAT["chunk"],
+           "grad_rel_l2": grad_rel, "loss": float(l_on), "launches": launches}
+    for knob in settings:
+        step_ms = statistics.median(ms[knob])
+        bound_ms = roofs[knob].bound * 1e3
+        frac = bound_ms / step_ms
+        peak = max(peaks[knob])
+        check(frac <= LAUNCH_ROOF_MAX,
+              f"chunk remat {knob}: roofline bound {bound_ms:.2f} ms is "
+              f"{frac:.3f} of the measured {step_ms:.2f} ms (at most "
+              f"{LAUNCH_ROOF_MAX})")
+        name = "on" if knob else "off"
+        out[name] = {
+            "step_ms": step_ms, "steps_ms": ms[knob],
+            "tokens_per_s": tokens / (step_ms / 1e3), "peak_bytes": peak,
+            "peaks": peaks[knob], "losses": losses[knob],
+            "counted_flops": counted[knob].flops,
+            "counted_bytes": counted[knob].bytes,
+            "counted_peak": counted[knob].peak_bytes,
+            "bound_ms": bound_ms, "bottleneck": roofs[knob].bottleneck,
+            "roofline_fraction": frac, "layer_ms": layer_ms[knob],
+            "layer_peak_bytes": layer_peak[knob]}
+        print(f"  knob {name:3s} ({card}): step {step_ms:.1f} ms (median of "
+              f"{[round(t, 1) for t in ms[knob]]}), {tokens / (step_ms / 1e3):.0f} "
+              f"tokens/s; peak over the step's start {peak} B; counted "
+              f"{counted[knob].flops:.4g} FLOP, {counted[knob].bytes:.4g} B, "
+              f"peak {counted[knob].peak_bytes:.4g} B; bound {bound_ms:.2f} "
+              f"ms ({roofs[knob].bottleneck}), {frac:.3f} of the step; one "
+              f"layer's forward + backward {layer_ms[knob]:.2f} ms, peak "
+              f"{layer_peak[knob]} B", flush=True)
+    check(out["on"]["peak_bytes"] < out["off"]["peak_bytes"],
+          f"chunk remat: the step's peak with the knob on "
+          f"{out['on']['peak_bytes']} B is not below off "
+          f"{out['off']['peak_bytes']} B")
+    check(layer_peak[True] < layer_peak[False],
+          f"chunk remat: one layer's peak with the knob on "
+          f"{layer_peak[True]} B is not below off {layer_peak[False]} B")
+    check(counted[True].flops > counted[False].flops,
+          f"chunk remat: counted FLOPs on {counted[True].flops:.4g} not "
+          f"above off {counted[False].flops:.4g}")
+    out["seconds"] = time.perf_counter() - t_phase
+    report["chunk_remat"] = out
+    print(f"  chunk remat ({card}): losses {losses[False]} off, "
+          f"{losses[True]} on; one step's gradients on vs off rel L2 "
+          f"{grad_rel:.3g}; step {out['off']['step_ms']:.1f} -> "
+          f"{out['on']['step_ms']:.1f} ms, peak {out['off']['peak_bytes']} -> "
+          f"{out['on']['peak_bytes']} B, one layer's peak "
+          f"{layer_peak[False]} -> {layer_peak[True]} B; launches "
+          f"{launches}; {out['seconds']:.1f} s", flush=True)
+
+
+#: runs the walkthrough ``sys.argv[1]`` as ``__main__`` with the arguments
+#: after it, then prints that process's launch counts
+_EXAMPLE_WRAPPER = """
+import json, runpy, sys
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+from repro_torch.kernels import build
+print("LAUNCHES " + json.dumps(build.launch_counts()), flush=True)
+"""
+
+
+def serve_twin_kernels(check, report, device=None):
+    """The serving walkthrough's kernels against their plain versions at
+    its own shapes: its three models (``model_and_prompts`` of
+    ``examples/torch_serve_batch.py``: the same reduced configs, weights
+    and prompts) in this process.  Every flash and scan call of the
+    engine's prefill (``SERVE_CALL``: "auto", so a kernel wherever it
+    takes the shapes; head dim 32, 16 query rows, one 16-token scan
+    chunk) is recorded with its inputs, then run again through the kernel
+    and through ``kernels.ref`` on those inputs (``FLASH_TOL``,
+    ``SCAN_TOL``); where a kernel ran, the prefill's last-position logits
+    with the kernels against the plain versions (``prefill_vs_plain``,
+    ``PREFILL_TOL``, bf16 and f32 compute).  Returns the calls held, by
+    kernel."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import prefill
+    from repro_torch.serve.engine import SERVE_CALL
+
+    dev = torch.device(device or "cuda")
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_batch", os.path.join(ROOT, "examples",
+                                          "torch_serve_batch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    demo = twin.demo.__defaults__            # (batch, prompt, new)
+    batch_n, prompt, new = demo
+    max_len = prompt + new + 1               # the twin's ServeConfig
+    held = {"flash_attention": 0, "ssm_scan": 0}
+    rows = {}
+    for arch in twin.ARCHS:
+        cfg, params, ex = twin.model_and_prompts(arch, batch_n, prompt)
+        model = params.to(dev)
+        batch = {"tokens": torch.as_tensor(ex["tokens"]).to(dev)}
+        calls, orig = [], {n: getattr(ops, n) for n in ("attention",
+                                                         "ssm_scan")}
+
+        def recorder(name):
+            def call(*args, **kw):
+                calls.append((name, [t.clone() for t in args],
+                              {k: v.clone() if torch.is_tensor(v) else v
+                               for k, v in kw.items()}))
+                return orig[name](*args, **kw)
+            return call
+
+        try:
+            ops.attention = recorder("attention")
+            ops.ssm_scan = recorder("ssm_scan")
+            with torch.no_grad():
+                prefill(model, cfg, batch, max_len, SERVE_CALL)
+        finally:
+            ops.attention, ops.ssm_scan = orig["attention"], orig["ssm_scan"]
+        errs = {"flash_attention": [], "ssm_scan": []}
+        with torch.no_grad():
+            for i, (name, args, kw) in enumerate(calls):
+                tag = f"{arch} serve twin #{i}"
+                if name == "attention":
+                    errs["flash_attention"].append(held_attention(
+                        check, report, *args, kw.get("causal", True), tag))
+                else:
+                    errs["ssm_scan"].append(held_scan(
+                        check, report, *args, kw.get("h0"), tag,
+                        return_state=kw.get("return_state", False)))
+        for k, v in errs.items():
+            held[k] += len(v)
+        row = {k: {"calls": len(v), "max_abs_err": max(v, default=None)}
+               for k, v in errs.items()}
+        print(f"  serve twin {arch}: prefill of {batch_n} x {prompt} tokens, "
+              + ", ".join(f"{k} {r['calls']} calls max_abs_err "
+                          f"{r['max_abs_err']}" for k, r in row.items()),
+              flush=True)
+        if calls:
+            with torch.no_grad():
+                row["prefill_logits"] = prefill_vs_plain(check, cfg, model,
+                                                         batch, max_len)
+        rows[arch] = row
+        del model, params, calls
+    report["serve_twin_kernels"] = rows
+    return held
+
+
+def examples_phase(check, report, device=None):
+    """The port's walkthroughs (``examples/torch_*.py``) on the card, all
+    five started together, each as a script in a process of its own (the
+    checkout's ``src`` on the path; the kernels' library is the one this
+    run built), the four that touch a device with ``--device cuda``.  A
+    wrapper runs the script as ``__main__`` and then prints that process's
+    kernel launch counts, so the axpy (quickstart, job graph), flash and
+    scan (serve batch) launches are counted here; they are not part of the
+    main paths' counts.  Checks: rc 0 and the printed facts — every
+    ``allclose=True``, the OFL001 rejection, the bit-identical autofix,
+    the failure and resume, the final loss below the first; then
+    :func:`serve_twin_kernels` holds the serving walkthrough's flash and
+    scan calls against their plain versions, as many calls of each as
+    its process launched.  ``device`` is for a rehearsal on the CPU."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    dev = device or "cuda"
+    print("== examples: the port's walkthroughs on the card", flush=True)
+    t0 = time.perf_counter()
+
+    def run(name):
+        args = () if name == "torch_offload_model_validation" else (
+            "--device", dev)
+        return run_py("-c", _EXAMPLE_WRAPPER,
+                      os.path.join(ROOT, "examples", name + ".py"), *args)
+
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        done = dict(zip(EXAMPLES, pool.map(run, EXAMPLES)))
+    texts = {name: text for name, (_, text, _) in done.items()}
+    secs = {name: t for name, (_, _, t) in done.items()}
+    counts = {}
+    total = {}
+    for name, (rc, text, _) in done.items():
+        tail = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+        counts[name] = json.loads(tail[-1][9:]) if tail else {}
+        for k, v in counts[name].items():
+            total[k] = total.get(k, 0) + v
+        check(rc == 0 and tail, f"example {name}: rc {rc}:\n{text[-2000:]}")
+        print(f"  {name}: rc {rc}, {secs[name]:.1f} s, launches "
+              f"{ {k: v for k, v in counts[name].items() if v} }", flush=True)
+        print("\n".join("    | " + ln for ln in text.splitlines()
+                        if not ln.startswith("LAUNCHES ")), flush=True)
+    qs, jg = texts["torch_quickstart"], texts["torch_job_graph"]
+    check(qs.count("allclose=True") == 5 and "allclose=False" not in qs,
+          "torch_quickstart: not every allclose=True")
+    check("allclose vs sequential numpy: True" in jg
+          and "codes=('OFL001',)" in jg
+          and "autofixed graph bit-identical: True" in jg,
+          "torch_job_graph: a printed fact is missing")
+    tl = texts["torch_train_lm"]
+    loss = re.search(r"first loss ([0-9.]+) -> final ([0-9.]+)", tl)
+    check("--- resumed from step 120 on mesh (4,) ---" in tl
+          and loss is not None
+          and float(loss.group(2)) < float(loss.group(1)),
+          "torch_train_lm: no resume line or the loss did not fall")
+    sb = texts["torch_serve_batch"]
+    check(sb.count("weight placement:") == 3,
+          "torch_serve_batch: not three models served")
+    for k in ("axpy", "flash_attention", "ssm_scan"):
+        check(total.get(k, 0) > 0,
+              f"the walkthroughs never launched the {k} kernel")
+    held = serve_twin_kernels(check, report, device)
+    served = counts.get("torch_serve_batch", {})
+    for k, n in held.items():
+        check(n == served.get(k),
+              f"torch_serve_batch launched {k} {served.get(k)} times; the "
+              f"same prefills here called it {n} times")
+    seconds = time.perf_counter() - t0
+    report["examples"] = {"seconds": secs, "launches": counts,
+                          "held": held, "wall_s": seconds}
+    print(f"  examples: {seconds:.1f} s for all five (started together) and "
+          f"the serving walkthrough's {held} kernel calls held against "
+          f"their plain versions; launches {total}", flush=True)
 
 
 def prefix_decode_check(check, report, served):
@@ -3930,7 +4349,14 @@ def main() -> int:
     launch_launches = launch_phase(check, report)
     torch.cuda.empty_cache()
 
-    # -- 13. what the main paths launched, and the result lines --------------
+    # -- 13. the chunked attention's per-chunk remat at 4 x 4096, off and on
+    chunk_remat_phase(check, report)
+    torch.cuda.empty_cache()
+
+    # -- 14. the walkthroughs, each a process of its own -------------------
+    examples_phase(check, report)
+
+    # -- 15. what the main paths launched, and the result lines --------------
     launches["flash_attention"] = (serve_launches["flash_attention"]
                                    + hybrid_launches["flash_attention"]
                                    + moe_launches["flash_attention"]

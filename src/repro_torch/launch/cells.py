@@ -50,10 +50,9 @@ SHAPES: Dict[str, Tuple[str, int, int]] = {
 }
 
 #: the reference's ``CallConfig`` knobs the port has no field for: the
-#: sharding constraints lay nothing out on one card, and the chunked
-#: attention's per-chunk remat is not ported (``models/model.py``)
+#: sharding constraints lay nothing out on one card (``models/model.py``)
 UNPORTED_CALL_KNOBS = ("residual_spec", "attn_q_sharding",
-                       "moe_buffer_sharding", "attn_chunk_remat")
+                       "moe_buffer_sharding")
 
 
 def applicable(cfg: ModelConfig, shape: str) -> Tuple[bool, str]:

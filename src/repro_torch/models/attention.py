@@ -3,7 +3,8 @@
 Five implementations behind one switch (``impl``):
   * "plain"   — dense masked attention written here (the twin of "xla");
   * "chunked" — online softmax over KV chunks in plain torch: O(S·chunk)
-                memory;
+                memory; with ``remat_chunk`` each chunk is recomputed in
+                the backward pass;
   * "kernel"  — the hand-written CUDA flash-attention kernel through
                 ``kernels.ops.attention`` (the twin of "pallas"); CUDA
                 tensors only, and it raises for a prefix-LM mask;
@@ -35,6 +36,7 @@ from __future__ import annotations
 from typing import Mapping, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
@@ -127,35 +129,63 @@ def _stub_attention(q, v) -> torch.Tensor:
     return o.expand(*q.shape[:3], v.shape[-1]).to(q.dtype)
 
 
-def _chunked_attention(q, k, v, *, prefix_len: int,
-                       chunk: int = 512) -> torch.Tensor:
+def _chunk_step(m, l, acc, q32, kb, vb, start: int, skv: int,
+                prefix_len: int):
+    """One KV chunk of the online softmax: the carry ``(m, l, acc)`` updated
+    with keys ``kb`` and values ``vb`` from column ``start`` on."""
+    sq = q32.shape[2]
+    kb = kb.to(torch.float32)
+    vb = vb.to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
+    rows = torch.arange(sq, device=q32.device)[:, None] + (skv - sq)
+    cols = start + torch.arange(kb.shape[2], device=q32.device)[None, :]
+    allowed = cols <= rows
+    if prefix_len > 0:
+        allowed = allowed | (cols < prefix_len)
+    s = s.masked_fill(~allowed[None, None], NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = l * alpha + p.sum(dim=-1, keepdim=True)
+    acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+    return m_new, l, acc
+
+
+def _chunked_attention(q, k, v, *, prefix_len: int, chunk: int = 512,
+                       remat_chunk: bool = False) -> torch.Tensor:
     """Online softmax over KV chunks (flash attention in plain torch).
 
-    k and v may have different head dims."""
+    k and v may have different head dims (MLA: qk = nope + rope, v =
+    ``v_head_dim``).  A last chunk shorter than ``chunk`` is sliced short.
+
+    ``remat_chunk`` — when autograd records the call, each chunk's body is
+    recomputed in the backward pass (``torch.utils.checkpoint``,
+    non-reentrant, so it nests inside the layer's remat) instead of saving
+    its (B, H, Sq, chunk) score and probability tiles: only the carry, the
+    scaled q and the chunk's K/V are kept, O(S) in place of O(S²/chunk) a
+    chunk, for about one more forward of the chunks.  The body draws no
+    random numbers, so the RNG state is not stashed.  The forward's result
+    is the same bits either way."""
     b, h, sq, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[2]
     q32 = q.to(torch.float32) / (d ** 0.5)
-    rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    remat = (remat_chunk and torch.is_grad_enabled()
+             and any(t.requires_grad for t in (q, k, v)))
     for start in range(0, skv, chunk):
-        kb = k[:, :, start:start + chunk].to(torch.float32)
-        vb = v[:, :, start:start + chunk].to(torch.float32)
-        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
-        cols = start + torch.arange(kb.shape[2], device=q.device)[None, :]
-        allowed = cols <= rows
-        if prefix_len > 0:
-            allowed = allowed | (cols < prefix_len)
-        s = s.masked_fill(~allowed[None, None], NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
-        m = m_new
+        kb = k[:, :, start:start + chunk]
+        vb = v[:, :, start:start + chunk]
+        if remat:
+            m, l, acc = torch.utils.checkpoint.checkpoint(
+                _chunk_step, m, l, acc, q32, kb, vb, start, skv, prefix_len,
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            m, l, acc = _chunk_step(m, l, acc, q32, kb, vb, start, skv,
+                                    prefix_len)
     l = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l).to(q.dtype)
 
@@ -168,6 +198,7 @@ def multihead_attention(
     impl: str = "auto",
     prefix_len: int = 0,
     chunk: int = 512,
+    remat_chunk: bool = False,
 ) -> torch.Tensor:
     impl = resolve_impl(impl, q, k, v, prefix_len)
     if impl == "kernel":
@@ -179,7 +210,8 @@ def multihead_attention(
     if impl == "stub":
         return _stub_attention(q, v)
     if impl == "chunked":
-        return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk)
+        return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk,
+                                  remat_chunk=remat_chunk)
     mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)
     return _plain_attention(q, k, v, mask)
 
@@ -210,10 +242,11 @@ def gqa_project(x, p: Params, cfg: ModelConfig, positions):
 
 def gqa_attention(x, p: Params, cfg: ModelConfig, positions, *,
                   impl: str = "auto", prefix_len: int = 0,
-                  chunk: int = 512) -> torch.Tensor:
+                  chunk: int = 512, remat_chunk: bool = False
+                  ) -> torch.Tensor:
     q, k, v = gqa_project(x, p, cfg, positions)
     o = multihead_attention(q, k, v, impl=impl, prefix_len=prefix_len,
-                            chunk=chunk)
+                            chunk=chunk, remat_chunk=remat_chunk)
     return torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
 
 
@@ -316,7 +349,8 @@ def mla_compress_kv(x, p: Params, cfg: ModelConfig, positions):
 
 def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
                   impl: str = "auto", c=None, k_rope=None,
-                  chunk: int = 512) -> torch.Tensor:
+                  chunk: int = 512, remat_chunk: bool = False
+                  ) -> torch.Tensor:
     """Full-sequence MLA attention (``c``/``k_rope`` may be precomputed, as
     prefill does).  q and k have head dim nope + rope and v ``v_head_dim``,
     so "auto" resolves to "plain" (the flash kernel takes one head dim)."""
@@ -332,7 +366,8 @@ def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
                              m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
-    o = multihead_attention(q, k, v, impl=impl, chunk=chunk)
+    o = multihead_attention(q, k, v, impl=impl, chunk=chunk,
+                            remat_chunk=remat_chunk)
     return torch.matmul(_merge_heads(o), p["wo"].to(dt))
 
 

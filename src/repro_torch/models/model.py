@@ -29,13 +29,15 @@ embeddings, attended bidirectionally (the prefix-LM mask); the audio stub
 positions and adds nothing to the embedding.  A configuration that mixes
 families the reference never combines (a frontend or MoE layers on the
 state-space families) raises :class:`NotImplementedError`.
-Of ``CallConfig``'s fields, the reference's sharding knobs
-(``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) have no
-meaning on one device, and ``attn_chunk_remat`` recomputes the chunked
-attention's chunks, which no training call of the port runs: neither is
-ported.  ``remat`` recomputes each layer in the backward pass
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
-nothing saveable), so a training step keeps the layers' inputs only.
+Of the reference's ``CallConfig`` fields, the sharding knobs
+(``residual_spec``, ``attn_q_sharding``, ``moe_buffer_sharding``) are not
+ported: they constrain how XLA lays arrays out over a device mesh, and one
+card lays nothing out.  ``remat`` recomputes each layer in the backward
+pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` with
+nothing saveable), so a training step keeps the layers' inputs only;
+``attn_chunk_remat`` recomputes each chunk of the chunked attention in the
+backward pass as well (a checkpoint nested in the layer's), so the layer's
+recomputed backward keeps the chunks' carries, not their score tiles.
 
 :func:`loss_fn` is the reference's next-token cross entropy.  The kernels
 have no backward: under autograd a kernel wrapper raises, so a training
@@ -137,6 +139,7 @@ class CallConfig:
     # under autograd only; the reference's ``jax.checkpoint``)
     remat: bool = True
     moe_no_drop: bool = False       # exact MoE routing (serving / eval)
+    attn_chunk_remat: bool = False  # recompute chunk bodies in backward
     # one compute-dtype copy of every f32 layer weight per call (the MoE
     # router too, as in the reference).  Off by default: at full width a
     # copy costs half the weights again (deepseek-v2-lite-16b's 64.84 GB
@@ -572,7 +575,8 @@ def shared_attn_block(x: torch.Tensor, sb: Mapping[str, Any],
     :meth:`Transformer.shared_params`)."""
     h = rms_norm(x, sb["ln1"], cfg.norm_eps)
     x = x + attn.gqa_attention(h, sb["attn"], shared_config(cfg), positions,
-                               impl=call.attn_impl, chunk=call.attn_chunk)
+                               impl=call.attn_impl, chunk=call.attn_chunk,
+                               remat_chunk=call.attn_chunk_remat)
     h = rms_norm(x, sb["ln2"], cfg.norm_eps)
     return x + _mlp(h, sb, cfg)
 
@@ -583,11 +587,13 @@ def _decoder_layer(x, lp, cfg: ModelConfig, positions, prefix_len: int,
     h = rms_norm(x, lp["ln1"], cfg.norm_eps, plus_one=cfg.embed_scale)
     if cfg.mla:
         x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
-                                   impl=call.attn_impl, chunk=call.attn_chunk)
+                                   impl=call.attn_impl, chunk=call.attn_chunk,
+                                   remat_chunk=call.attn_chunk_remat)
     else:
         x = x + attn.gqa_attention(h, lp["attn"], cfg, positions,
                                    impl=call.attn_impl, prefix_len=prefix_len,
-                                   chunk=call.attn_chunk)
+                                   chunk=call.attn_chunk,
+                                   remat_chunk=call.attn_chunk_remat)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps, plus_one=cfg.embed_scale)
     delta, aux = _ffn(h, lp, cfg, call.moe_no_drop)
     return x + delta, aux
@@ -784,14 +790,16 @@ def prefill(model: Transformer, cfg: ModelConfig,
             c, krope = attn.mla_compress_kv(h, lp["attn"], cfg, positions)
             x = x + attn.mla_attention(h, lp["attn"], cfg, positions,
                                        impl=call.attn_impl, c=c,
-                                       k_rope=krope, chunk=call.attn_chunk)
+                                       k_rope=krope, chunk=call.attn_chunk,
+                                       remat_chunk=call.attn_chunk_remat)
             cache["c"][i, :, :s] = c.to(cache["c"].dtype)
             cache["krope"][i, :, :s] = krope[:, 0].to(cache["krope"].dtype)
         else:
             q, k, v = attn.gqa_project(h, lp["attn"], cfg, positions)
             o = attn.multihead_attention(q, k, v, impl=call.attn_impl,
                                          prefix_len=prefix_len,
-                                         chunk=call.attn_chunk)
+                                         chunk=call.attn_chunk,
+                                         remat_chunk=call.attn_chunk_remat)
             x = x + torch.matmul(attn._merge_heads(o),
                                  lp["attn"]["wo"].to(dt))
             cache["k"][i, :, :s] = attn._merge_heads(k).to(cache["k"].dtype)
@@ -828,7 +836,8 @@ def _prefill_hybrid(model: Transformer, cfg: ModelConfig, x: torch.Tensor,
         hh = rms_norm(x, sb["ln1"], cfg.norm_eps)
         q, k, v = attn.gqa_project(hh, sb["attn"], scfg, positions)
         o = attn.multihead_attention(q, k, v, impl=call.attn_impl,
-                                     chunk=call.attn_chunk)
+                                     chunk=call.attn_chunk,
+                                     remat_chunk=call.attn_chunk_remat)
         x = x + torch.matmul(attn._merge_heads(o), sb["attn"]["wo"].to(dt))
         cache["k"][app, :, :s] = attn._merge_heads(k).to(cache["k"].dtype)
         cache["v"][app, :, :s] = attn._merge_heads(v).to(cache["v"].dtype)

@@ -19,7 +19,9 @@ and ``tests/test_hlo_cost.py``, on the CPU (``meta`` tensors).
   bytes zero in both on 1 x 1, and on 4 x 2 nonzero in the port wherever
   the reference's HLO has them.  The SSM and hybrid cells are held to the
   port's own analytic count of its sequential scan, and their ratio to the
-  reference is printed (ROADMAP's differences).
+  reference is printed (ROADMAP's differences).  The chunked attention's
+  per-chunk remat (``attn_chunk_remat``) is counted in the same
+  subprocess, with and without the knob, against the same bar.
 """
 
 import json
@@ -56,6 +58,11 @@ FLOP_REL = 0.05
 SMALL = {"train_4k": ("train", 64, 8), "prefill_32k": ("prefill", 64, 8),
          "decode_32k": ("decode", 64, 8), "long_500k": ("decode", 128, 4)}
 MESHES = {"1x1": (1, 1), "4x2": (4, 2)}
+#: the chunked attention's per-chunk remat, counted on 1 x 1 with and
+#: without the knob: the reduced ``train_4k`` (64 tokens) in chunks of 16,
+#: since at 64 tokens the cell's own call is the plain attention
+KNOB_ARCHS = ["smollm-360m", "deepseek-v2-lite-16b"]
+CHUNKED = {"attn_impl": "chunked", "attn_chunk": 16}
 
 N = 256
 DOT = 2 * N ** 3
@@ -307,6 +314,14 @@ for mname, shape in {meshes!r}.items():
         out["/".join((arch, cell, mname))] = {{
             "flops": c.flops, "collective_bytes": c.collective_bytes,
             "args": comp.memory_analysis().argument_size_in_bytes}}
+mesh = Mesh(devs[:1].reshape(1, 1), ("data", "model"))
+for arch in {knob_archs!r}:
+    for knob in (False, True):
+        fn, args, meta = cells.build_cell(
+            arch, "train_4k", mesh, dict({chunked!r}, attn_chunk_remat=knob))
+        comp = fn.lower(*args).compile()
+        out["/".join((arch, "chunk_remat", str(knob)))] = {{
+            "flops": analyze_hlo_text(comp.as_text()).flops}}
 print("REF" + json.dumps(out))
 '''
 
@@ -326,7 +341,9 @@ def _reduced_cell(arch, shape, mesh_shape):
 @pytest.fixture(scope="module")
 def parity(subproc):
     out = subproc(_REFERENCE_CODE.format(small=SMALL, meshes=MESHES,
-                                         cells=PARITY, six=SIX),
+                                         cells=PARITY, six=SIX,
+                                         knob_archs=KNOB_ARCHS,
+                                         chunked=CHUNKED),
                   devices=8, x64=False, timeout=900)
     ref = json.loads(out[out.index("REF") + 3:].splitlines()[0])
     port = {}
@@ -340,6 +357,13 @@ def parity(subproc):
                 port["/".join((arch, cell, mname))] = dryrun.run_cell(
                     arch, cell, False,
                     mesh=make_mesh(mshape, ("data", "model")))
+        for arch in KNOB_ARCHS:
+            for knob in (False, True):
+                port["/".join((arch, "chunk_remat", str(knob)))] = (
+                    dryrun.run_cell(arch, "train_4k", False,
+                                    dict(CHUNKED, attn_chunk_remat=knob),
+                                    mesh=make_mesh((1, 1),
+                                                   ("data", "model"))))
     return ref, port
 
 
@@ -365,3 +389,23 @@ def test_parity_with_the_reference(parity, arch, shape):
     if r["collective_bytes"] > 0:
         assert p["roofline"]["collective_bytes_per_device"] > 0
         assert sum(p["roofline"]["collective_counts"].values()) > 0
+
+
+@pytest.mark.parametrize("arch", KNOB_ARCHS)
+def test_chunk_remat_parity_with_the_reference(parity, arch):
+    """``attn_chunk_remat`` counts the chunks' recompute: the port's FLOPs
+    with the knob within FLOP_REL of the reference's ``hlo_cost`` with the
+    same override, above the port's own count without it, and the
+    counted peak of live bytes below it."""
+    ref, port = parity
+    rec = {knob: port["/".join((arch, "chunk_remat", str(knob)))]
+           for knob in (False, True)}
+    flops = {k: r["roofline"]["flops_per_device"] for k, r in rec.items()}
+    for knob in (False, True):
+        want = ref["/".join((arch, "chunk_remat", str(knob)))]["flops"]
+        print(f"{arch} chunked, knob {knob}: port/reference FLOPs "
+              f"{flops[knob] / want:.4f} ({flops[knob]:.5g} / {want:.5g})")
+        assert flops[knob] / want == pytest.approx(1.0, abs=FLOP_REL)
+    assert flops[True] > flops[False]
+    temp = {k: r["memory"]["temp_bytes_per_device"] for k, r in rec.items()}
+    assert temp[True] < temp[False], temp
