@@ -44,7 +44,9 @@ where it launches.  During a capture it launches nothing, so the counts
 that capture added are taken back, and every replay adds them, so the
 counts are device launches.
 
-A capture or a replay that fails raises; nothing here retries eagerly.
+A capture (its warm-up and instantiation included) is the span
+``graphs.capture`` (``core/trace.py``).  A capture or a replay that fails
+raises; nothing here retries eagerly.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from typing import Any, Callable, Dict, Hashable, Iterator, Optional, \
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.kernels import build
 
 Body = Callable[[], Any]
@@ -109,7 +112,8 @@ class Graph:
         captures it; later calls replay.  With ``copy``, a replay returns
         copies of the static outputs."""
         if self.graph is None:
-            return self._capture()
+            with trace.span("graphs.capture"):
+                return self._capture()
         self.graph.replay()
         for name, n in self.launches.items():
             build.KERNELS[name].launches += n

@@ -44,7 +44,12 @@ the done-mask and refill from the queue, and one drain of the tokens at the
 end.  As in the reference it needs GQA attention (the dense family, or
 MoE with GQA such as llama4-scout): it raises
 :class:`NotImplementedError` for the ``ssm`` and ``hybrid`` families, MLA
-and the modality frontends.  ``generate`` serves the ``ssm`` family
+and the modality frontends.  Beside the reference's counters, ``stats``
+holds the host nanoseconds of the continuous batching (``HOST_NS``: the
+whole call, its inserts, its ragged steps' launches, its retires, its
+drain), and a
+call records the spans ``serve.*`` (``core/trace.py``) while tracing is
+on.  ``generate`` serves the ``ssm`` family
 (falcon-mamba) with its state cache (``conv``, ``h``, ``pos``), the
 ``hybrid`` family (zamba2) with its state cache and the shared block's
 K/V, one slot per application (``conv``, ``h``, ``k``, ``v``, ``pos``),
@@ -74,13 +79,14 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import broadcast as bc
-from repro_torch.core import graphs
+from repro_torch.core import graphs, trace
 from repro_torch.core.completion import CompletionUnit
 from repro_torch.core.fabric import (
     ClusterLease, FabricScheduler, LeaseUnavailable, Tenant,
@@ -96,6 +102,13 @@ from repro_torch.models.model import (
 #: the serving programs' call: exact MoE routing (C = tokens), as the
 #: reference's engine and its `build_*` programs default to
 SERVE_CALL = CallConfig(moe_no_drop=True)
+
+#: the host nanoseconds ``generate_many`` adds to ``stats``: the whole
+#: call, its inserts, its ragged steps from the launch through the
+#: dispatch's end, its retire loops, and its drain; each part includes
+#: whatever wait for the device its own calls meet
+HOST_NS = ("call_host_ns", "insert_host_ns", "step_host_ns",
+           "retire_host_ns", "drain_host_ns")
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -253,6 +266,7 @@ class ServeEngine:
                  cluster_ids: Optional[Sequence[int]] = None):
         self.cfg, self.scfg, self.call = cfg, scfg, call
         self.device = resolve_device(device)
+        self._card = self.device.type == "cuda"
         self.params = params
         # the engine's fabric window (global cluster ids): what its
         # placements count as replicated onto
@@ -267,7 +281,8 @@ class ServeEngine:
         self.stats = {"h2d_token_puts": 0, "xla_dispatches": 0,
                       "tokens_emitted": 0, "prefill_inserts": 0,
                       "requests_retired": 0, "batch_padded_rows": 0,
-                      "h2d_bytes": 0, "d2d_bytes": 0}
+                      "h2d_bytes": 0, "d2d_bytes": 0,
+                      **dict.fromkeys(HOST_NS, 0)}
 
     # -- placement (weights + prefill inserts) -------------------------------------
 
@@ -504,6 +519,13 @@ class ServeEngine:
         steps where the batch is idle are skipped, not decoded.  Greedy
         outputs are schedule-independent.
         """
+        t0 = time.perf_counter_ns()
+        with trace.span("serve.generate_many"):
+            out = self._generate_many(requests, arrival_steps)
+        self.stats["call_host_ns"] += time.perf_counter_ns() - t0
+        return out
+
+    def _generate_many(self, requests, arrival_steps):
         if (self.cfg.family in ("ssm", "hybrid") or self.cfg.mla
                 or self.cfg.frontend):
             raise NotImplementedError(
@@ -534,6 +556,7 @@ class ServeEngine:
         state = self._state()
         state.reset()
         gen = self._generator(self.device)
+        stats = self.stats
 
         def make_step():
             step_fn = build_ragged_step(model, self.cfg, scfg.temperature,
@@ -550,49 +573,63 @@ class ServeEngine:
         slots: List[Optional[Dict[str, int]]] = [None] * B
         free = list(range(B))
         order = sorted(range(R), key=lambda r: (arrivals[r], r))
+        # queued requests, each with its arrival (its ``serve.queue`` span)
         queue: collections.deque = collections.deque()
         step_log: List[Tuple[torch.Tensor, List[Tuple[int, int]]]] = []
         t = 0
         pi = 0
         while pi < R or queue or any(s is not None for s in slots):
             while pi < R and arrivals[order[pi]] <= t:
-                queue.append(order[pi])
+                queue.append((order[pi], time.time_ns()))
                 pi += 1
             # prefill-insert: refill free slots from the queue
             while queue and free:
-                r = queue.popleft()
+                r, since = queue.popleft()
                 j = free.pop(0)
-                self._insert(model, state, j, reqs[r][0])
+                t0 = time.perf_counter_ns()
+                trace.interval("serve.queue", since, time.time_ns(), req=r)
+                with trace.span("serve.insert", req=r, device=self._card):
+                    self._insert(model, state, j, reqs[r][0])
+                stats["insert_host_ns"] += time.perf_counter_ns() - t0
                 slots[j] = {"req": r, "remaining": reqs[r][1]}
             if all(s is None for s in slots):
                 t = arrivals[order[pi]]     # batch idle: skip to next arrival
                 continue
             # one resident decode step advances every occupied slot
-            job = self._dispatch_begin()
-            tok = self._program("ragged", 1, make_step).clone()
+            t0 = time.perf_counter_ns()
+            with trace.span("serve.step", device=self._card):
+                job = self._dispatch_begin()
+                tok = self._program("ragged", 1, make_step).clone()
             live = [(j, s["req"]) for j, s in enumerate(slots)
                     if s is not None]
             self._dispatch_end(job, tokens=len(live))
+            stats["step_host_ns"] += time.perf_counter_ns() - t0
             step_log.append((tok, live))
-            for j, s in enumerate(slots):
-                if s is None:
-                    continue
-                s["remaining"] -= 1
-                if s["remaining"] == 0:     # done-mask: retire the slot
-                    slots[j] = None
-                    free.append(j)
-                    free.sort()
-                    state.active[j] = 0
-                    self.stats["requests_retired"] += 1
+            t0 = time.perf_counter_ns()
+            with trace.span("serve.retire"):
+                for j, s in enumerate(slots):
+                    if s is None:
+                        continue
+                    s["remaining"] -= 1
+                    if s["remaining"] == 0:     # done-mask: retire the slot
+                        slots[j] = None
+                        free.append(j)
+                        free.sort()
+                        state.active[j] = 0
+                        stats["requests_retired"] += 1
+            stats["retire_host_ns"] += time.perf_counter_ns() - t0
             t += 1
 
         # tokens stayed device-resident throughout; one drain at the end
-        results: List[List[int]] = [[] for _ in range(R)]
-        if step_log:
-            fetched = torch.stack([tk for tk, _ in step_log]).cpu().numpy()
-            for tk_host, (_, live) in zip(fetched, step_log):
-                for j, r in live:
-                    results[r].append(tk_host[j, 0])
+        t0 = time.perf_counter_ns()
+        with trace.span("serve.drain"):
+            results: List[List[int]] = [[] for _ in range(R)]
+            if step_log:
+                fetched = torch.stack([tk for tk, _ in step_log]).cpu().numpy()
+                for tk_host, (_, live) in zip(fetched, step_log):
+                    for j, r in live:
+                        results[r].append(tk_host[j, 0])
+        stats["drain_host_ns"] += time.perf_counter_ns() - t0
         return [np.asarray(seq, np.int32) for seq in results]
 
     def _insert(self, model, state: DecodeState, slot: int,
@@ -610,11 +647,13 @@ class ServeEngine:
             sb = min(-(-(s - 1) // bucket) * bucket, self.scfg.max_len)
             padded = np.zeros((1, sb), np.int32)
             padded[0, :s - 1] = prompt[:-1]
-            _, pcache = prefill(model, self.cfg,
-                                {"tokens": self._put_replicated(padded)},
-                                self.scfg.max_len, self.call)
-            cache["k"][:, slot:slot + 1] = pcache["k"]
-            cache["v"][:, slot:slot + 1] = pcache["v"]
+            with trace.span("serve.insert.prefill", device=self._card):
+                _, pcache = prefill(model, self.cfg,
+                                    {"tokens": self._put_replicated(padded)},
+                                    self.scfg.max_len, self.call)
+            with trace.span("serve.insert.cache_write", device=self._card):
+                cache["k"][:, slot:slot + 1] = pcache["k"]
+                cache["v"][:, slot:slot + 1] = pcache["v"]
         state.tok[slot, 0] = int(prompt[-1])
         self.stats["h2d_token_puts"] += 1   # the pending prompt token
         state.pos_b[slot] = s - 1

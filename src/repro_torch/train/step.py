@@ -23,6 +23,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch import convert
+from repro_torch.core import trace
 from repro_torch.dist.sharding import (
     LogicalMesh, batch_specs, param_specs,
 )
@@ -106,23 +107,30 @@ def grads_with_microbatching(
 def train_step_fn(cfg: ModelConfig, tcfg: TrainConfig):
     """-> ``step_fn(model, opt_state, batch, step)`` -> (model, opt_state,
     metrics ``loss``, ``lr``, ``grad_norm``, ``arrivals``): one training
-    step, the model and the state updated in place."""
+    step, the model and the state updated in place, recorded as the
+    spans ``train.step`` and, inside it, ``train.grads`` (the loss and
+    its gradients, every microbatch) and ``train.adamw`` (the update:
+    the global norm, the clip and the per-tensor loop)."""
     gfn = grads_with_microbatching(cfg, tcfg.call, tcfg.microbatches)
 
     def step_fn(model: Transformer, opt_state: Dict[str, Any],
                 batch: Mapping[str, Any], step):
-        loss, grads = gfn(model, batch)
-        lr = linear_warmup_cosine(
-            torch.as_tensor(step, device=loss.device),
-            base_lr=tcfg.base_lr, warmup_steps=tcfg.warmup_steps,
-            total_steps=tcfg.total_steps)
-        del batch
-        _, opt_state, om = adamw_update(grads, opt_state, model, lr,
-                                        tcfg.adamw)
-        metrics = {"loss": loss, "lr": lr, **om,
-                   # the completion-unit arrival
-                   "arrivals": torch.ones((), dtype=_F32,
-                                          device=loss.device)}
+        card = model.device.type == "cuda"
+        with trace.span("train.step"):
+            with trace.span("train.grads", device=card):
+                loss, grads = gfn(model, batch)
+            lr = linear_warmup_cosine(
+                torch.as_tensor(step, device=loss.device),
+                base_lr=tcfg.base_lr, warmup_steps=tcfg.warmup_steps,
+                total_steps=tcfg.total_steps)
+            del batch
+            with trace.span("train.adamw", device=card):
+                _, opt_state, om = adamw_update(grads, opt_state, model, lr,
+                                                tcfg.adamw)
+            metrics = {"loss": loss, "lr": lr, **om,
+                       # the completion-unit arrival
+                       "arrivals": torch.ones((), dtype=_F32,
+                                              device=loss.device)}
         return model, opt_state, metrics
 
     return step_fn

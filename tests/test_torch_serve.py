@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_counters import reference_counters
 from repro_torch import convert
 from repro_torch import models as T
 from repro_torch.core.policy import Staging
@@ -166,7 +167,7 @@ def test_generate_matches_reference(reference, arch, mode):
     out = eng.generate(_prompts(arch), NEW)
     assert out.dtype == np.int32 and out.shape == (BATCH, NEW)
     np.testing.assert_array_equal(out, arrays[f"gen_{arch}_{mode}"])
-    assert eng.stats == meta[f"stats_{arch}_{mode}"]
+    assert reference_counters(eng.stats) == meta[f"stats_{arch}_{mode}"]
 
 
 @pytest.mark.parametrize("arch", ARCHS + [SSM_ARCH])
@@ -176,7 +177,7 @@ def test_padded_sub_batch_matches_reference(reference, arch):
     out = eng.generate(_prompts(arch)[:3], NEW)
     np.testing.assert_array_equal(out, arrays[f"sub_{arch}"])
     np.testing.assert_array_equal(out, arrays[f"gen_{arch}_chunk"][:3])
-    assert eng.stats == meta[f"stats_{arch}_sub"]
+    assert reference_counters(eng.stats) == meta[f"stats_{arch}_sub"]
     assert eng.stats["batch_padded_rows"] == 1
 
 
@@ -195,7 +196,7 @@ def test_generate_many_matches_reference(reference, arch, staging):
     for i, o in enumerate(outs):
         np.testing.assert_array_equal(o, arrays[f"many_{arch}_{staging}_{i}"])
         assert o.shape == (reqs[i][1],)
-    assert eng.stats == meta[f"stats_{arch}_many_{staging}"]
+    assert reference_counters(eng.stats) == meta[f"stats_{arch}_many_{staging}"]
 
 
 @pytest.mark.parametrize("staging", ["direct", "tree"])
@@ -203,7 +204,7 @@ def test_generate_many_matches_reference(reference, arch, staging):
 def test_place_params_bytes_match_reference(reference, arch, staging):
     arrays, meta = reference
     eng = _engine(arrays, arch, staging=Staging(staging))
-    assert eng.stats == meta[f"place_{arch}_{staging}"]
+    assert reference_counters(eng.stats) == meta[f"place_{arch}_{staging}"]
     host = _host_model(arrays, arch)
     assert eng.stats["h2d_bytes"] == sum(
         p.numel() * p.element_size() for p in host.parameters())
