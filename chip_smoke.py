@@ -262,6 +262,7 @@ LARGE_SHAPES = {
 NS = (1, 8, 32)
 FUSE = 8
 KERNEL_JOBS = ("axpy", "matmul", "atax", "covariance")
+MODEL_KERNELS = ("flash_attention", "ssm_scan", "decode_attention")
 #: the serving phase: Yi-9B at its published width
 SERVE_ARCH = "yi-9b"
 SERVE_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
@@ -344,6 +345,14 @@ FRONTEND_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
 AUDIO_FLASH_SHAPE = ((4, 32, 512, 64), (4, 32, 512, 64))
 #: smollm-360m's trained-weights forward (train_phase): 15/5 heads of 64
 TRAIN_FLASH_SHAPE = ((8, 15, 2048, 64), (8, 5, 2048, 64))
+#: Yi-9B's batch-decode step: (rows, query heads, positions, KV heads, d)
+DECODE_SHAPE = (256, 32, 1024, 4, 128)
+#: every GQA/MHA configuration of the registry: (Hq, Hkv, d) and a name
+DECODE_REGISTRY = (((40, 10, 128), "phi3"), ((64, 8, 128), "qwen1.5"),
+                   ((15, 5, 64), "smollm"), ((40, 8, 128), "llama4"),
+                   ((8, 1, 256), "paligemma"), ((32, 32, 80), "zamba2"),
+                   ((32, 32, 64), "musicgen"), ((4, 2, 32), "reduced"),
+                   ((4, 1, 32), "reduced 4:1"))
 #: a decode step's logits against the full-sequence path's (deepseek's
 #: MLA step, paligemma's step after its prefix), float32 compute, as a
 #: relative L2 distance (the bar of the same comparison in
@@ -642,6 +651,108 @@ def flash_phase(check, report, time_ms):
     timed(*AUDIO_FLASH_SHAPE, "musicgen prefill")  # head dim 64
     timed(*TRAIN_FLASH_SHAPE, "smollm forward")    # GQA 15/5, 2048
     timed(*FLASH_OPS_SHAPE, "operations-bound")
+    return row
+
+
+def decode_work(lengths, hkv, d, itemsize):
+    """Bytes one decode-attention call needs: the live K and V rows of each
+    row's KV heads, read once (q and the output are a few KB); ``lengths``
+    at most Smax."""
+    return 2 * sum(lengths) * hkv * d * itemsize
+
+
+def decode_phase(check, report, time_ms):
+    """The decode-attention kernel against its plain version on the card:
+    at Yi-9B's batch-decode step (256 rows of 1024 positions, 32/4 heads
+    of 128, bf16) with the batch-decode mix's positions, and at every GQA
+    and MHA configuration of the registry in bf16 and f32.  Times the
+    batch-decode call beside its plain version and its bound (the live K
+    and V bytes).  Returns that row of the kernels line."""
+    import torch
+    from repro_torch.kernels import decode_attention as dec, ops
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(47)
+    print("== decode attention against its plain version", flush=True)
+
+    def inputs(b, hq, hkv, d, smax, dtype):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, hq, d), (b, smax, hkv * d),
+                              (b, smax, hkv * d))]
+
+    def held(q, k, v, lens, tag):
+        d = q.shape[-1]
+        got = ops.decode_attention(q, k, v, lens, scale=d ** -0.5)
+        want = dec.plain(q.float(), k, v, lens, scale=d ** -0.5)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        # f32 rounding, and one rounding to bf16 of unit-scale outputs
+        tol = 2e-5 if q.dtype == torch.float32 else 2 ** -8 * (
+            want.abs().max().item()) + 2e-5
+        check(err <= tol, f"decode_attention {tag}: max_abs_err {err:.3g} "
+                          f"past {tol:.3g}")
+        report["kernel_checks"].append(
+            {"kernel": "decode_attention", "tag": tag, "max_abs_err": err})
+        return err
+
+    b, hq, smax, hkv, d = DECODE_SHAPE
+    with open(os.path.join(ROOT, "bench", "mixes", "batch-decode.json")) as f:
+        reqs = json.load(f)["requests"][:b]
+    q, k, v = inputs(b, hq, hkv, d, smax, torch.bfloat16)
+    spreads = {}
+    for tag, frac in (("prompts", 0.0), ("mid-call", 0.5), ("outputs", 1.0)):
+        lens = torch.tensor([min(smax, p + int(o * frac)) for p, o in reqs],
+                            dtype=torch.int32, device=dev)
+        spreads[tag] = lens
+        err = held(q, k, v, lens, f"batch-decode {tag}")
+        print(f"  batch-decode ({tag}: lengths {int(lens.min())}-"
+              f"{int(lens.max())}): max_abs_err {err:.3g}", flush=True)
+    for lo_hi in ((1, 1), (smax, smax), (1, smax)):
+        lens = torch.randint(lo_hi[0], lo_hi[1] + 1, (b,), generator=g,
+                             device=dev, dtype=torch.int32)
+        held(q, k, v, lens, f"batch-decode lengths {lo_hi[0]}-{lo_hi[1]}")
+    for (rhq, rhkv, rd), name in DECODE_REGISTRY:
+        for dtype in (torch.bfloat16, torch.float32):
+            rq, rk, rv = inputs(4, rhq, rhkv, rd, 545, dtype)
+            lens = torch.tensor([1, 545, 548, 200], dtype=torch.int32,
+                                device=dev)
+            err = held(rq, rk, rv, lens, f"{name} {str(dtype)[6:]}")
+            print(f"  {name:12s} {rhq}/{rhkv} heads of {rd} "
+                  f"{str(dtype):14s}: max_abs_err {err:.3g}", flush=True)
+            del rq, rk, rv
+
+    lens = spreads["mid-call"]
+    nbytes = decode_work(lens.tolist(), hkv, d, 2)
+    scale = d ** -0.5
+    sets = [[q, k, v, lens]]          # 537 MB a call: past the L2 already
+
+    def kernel(q, k, v, lens):
+        return ops.decode_attention(q, k, v, lens, scale=scale)
+
+    row = {"kernel": "decode_attention", "tag": "batch-decode mid-call",
+           "dtype": str(torch.bfloat16),
+           "shapes": [[b, hq, d], [b, smax, hkv * d]],
+           "max_abs_err": held(q, k, v, lens, "batch-decode timed"),
+           "ms": time_ms(lambda: kernel(q, k, v, lens)),
+           "device_ms": device_ms(kernel, sets),
+           "plain_ms": time_ms(lambda: dec.plain(q, k, v, lens, scale=scale)),
+           "library_ms": None, "library_device_ms": None,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+           "live_positions": int(lens.sum()),
+           "plan": list(dec.plan(b, hkv, smax, d, torch.bfloat16,
+                                 torch.cuda.get_device_properties(
+                                     0).multi_processor_count))}
+    full = torch.full((b,), smax, dtype=torch.int32, device=dev)
+    row["full_device_ms"] = device_ms(kernel, [[q, k, v, full]])
+    row["full_bound_ms"] = decode_work(full.tolist(), hkv, d, 2) \
+        / HBM_BYTES_PER_S * 1e3
+    report["kernel_times"].append(row)
+    print(f"  time decode_attention batch-decode (mid-call, "
+          f"{row['live_positions']} live positions): kernel {row['ms']:.4f} "
+          f"ms (device {row['device_ms']:.4f}), plain {row['plain_ms']:.4f} "
+          f"ms, bound {row['bound_ms']:.4f} ms (bytes: {nbytes} B); all "
+          f"{smax} positions: device {row['full_device_ms']:.4f}, bound "
+          f"{row['full_bound_ms']:.4f} ms; plan {row['plan']}", flush=True)
     return row
 
 
@@ -4305,6 +4416,8 @@ def main() -> int:
     # -- 4-5. flash attention, the serving path, the serve tenant ---------
     flash_row = flash_phase(check, report, time_ms)
     torch.cuda.empty_cache()
+    decode_row = decode_phase(check, report, time_ms)
+    torch.cuda.empty_cache()
     served = serving_phase(check, report)
     serve_launches = served["launches"]
     tenant_phase(check, report, served)
@@ -4365,18 +4478,22 @@ def main() -> int:
                                    + launch_launches["flash_attention"])
     launches["ssm_scan"] = (ssm_launches["ssm_scan"]
                             + hybrid_launches["ssm_scan"])
+    launches["decode_attention"] = sum(
+        counts["decode_attention"] for counts in (
+            serve_launches, hybrid_launches, moe_launches, frontend_launches))
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + "; of these, by graph replays: "
           + " ".join(f"{k}={v}" for k, v in replayed.items()))
-    for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
+    for name in KERNEL_JOBS + MODEL_KERNELS:
         check(launches[name] > 0,
               f"its main path never launched the {name} kernel")
     for name in KERNEL_JOBS:
         check(replayed.get(name, 0) > 0,
               f"no graph replay launched the {name} kernel")
     line = []
-    rows = dict(main_rows, flash_attention=flash_row, ssm_scan=scan_row)
-    for name in KERNEL_JOBS + ("flash_attention", "ssm_scan"):
+    rows = dict(main_rows, flash_attention=flash_row, ssm_scan=scan_row,
+                decode_attention=decode_row)
+    for name in KERNEL_JOBS + MODEL_KERNELS:
         k = build.KERNELS[name]
         row = rows[name]
         line.append({"name": name, "route": "cuda", "source": k.source,

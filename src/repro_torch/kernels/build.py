@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu",
-           "flash_attention.cu", "ssm_scan.cu")
+           "flash_attention.cu", "ssm_scan.cu", "decode_attention.cu")
 HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -59,6 +59,8 @@ SIGNATURES = {
                               _P),
     "repro_ssm_scan": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_flash_qk_tile": (_P, _P, _P, _I, _P),
+    "repro_decode_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _I, _D, _P),
 }
 
 
@@ -287,7 +289,9 @@ class Kernel:
 
     name: str
     source: str          # path in the repository
-    replaces: str        # file:line of the Pallas TPU kernel
+    replaces: str        # file:line of the Pallas TPU kernel, or of the
+    #                      reference function whose plain work it takes
+    #                      over where no Pallas kernel computes it
     launches: int = 0
 
 
@@ -306,6 +310,10 @@ KERNELS: Dict[str, Kernel] = {
                               "src/repro/kernels/flash_attention.py:96"),
     "ssm_scan": Kernel("ssm_scan", _src("ssm_scan.cu"),
                        "src/repro/kernels/ssm_scan.py:56"),
+    # no Pallas twin: the reference's decode attention is plain XLA
+    "decode_attention": Kernel("decode_attention",
+                               _src("decode_attention.cu"),
+                               "src/repro/models/attention.py:220"),
 }
 
 

@@ -16,6 +16,7 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.atax import atax as _atax_kernel
 from repro_torch.kernels.axpy import axpy as _axpy_kernel
+from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels.covariance import covariance as _cov_kernel
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_kernel,
@@ -78,6 +79,20 @@ def attention(q, k, v, *, causal: bool = True,
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal)
     return ref.attention(q, k, v, causal=causal)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, scale: float,
+                     impl: str = "auto") -> torch.Tensor:
+    """One query token per row against the KV cache, grouped query heads:
+    q (B, Hq, D), k_cache/v_cache (B, Smax, Hkv·D) as stored (contiguous,
+    read in place), lengths (B,) int32 -> (B, Hq, D) in q's dtype; row b
+    attends positions [0, min(lengths[b], Smax)), scores times ``scale``
+    (``kernels.decode_attention``)."""
+    if _resolve(impl, q) == "kernel":
+        return _decode.decode_attention(q, k_cache, v_cache, lengths,
+                                        scale=scale)
+    _decode.validate(q, k_cache, v_cache, lengths)
+    return _decode.plain(q, k_cache, v_cache, lengths, scale=scale)
 
 
 def ssm_scan(a, b, c, *, h0=None, return_state: bool = False,

@@ -19,12 +19,13 @@ Five implementations behind one switch (``impl``):
                 kernel is not built for stays "kernel" and raises.
 MLA (DeepSeek-V2's low-rank KV compression) is at the end of the file.
 
-Decode (one query token against a cache) is a separate path in plain
-torch, on the card too, as the reference keeps it always-XLA: it is a
-matrix-vector product per head, bound by streaming the cache.  It reads
-no tensor value on the host (the position is a device scalar, the cache
-is attended over its full length under a mask), so the serve engine
-captures it into a CUDA graph (``core/graphs.py``).
+Decode (one query token against a cache) is a separate path: the
+reference keeps it always-XLA, a matrix-vector product per head bound by
+streaming the cache.  Here it goes through ``kernels.ops.decode_attention``:
+on CUDA tensors the hand-written kernel, which reads the cache in place and
+only each row's live positions; on the CPU the plain masked attend.  It
+reads no tensor value on the host (the lengths are device tensors), so the
+serve engine captures it into a CUDA graph (``core/graphs.py``).
 
 Parameters ``p`` are one layer's attention weights as a mapping
 (``p["wq"]`` …), the reference's tree; projections cast each weight to the
@@ -250,33 +251,30 @@ def gqa_attention(x, p: Params, cfg: ModelConfig, positions, *,
     return torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
 
 
-def _decode_attend(q, kk, vv, valid, cfg: ModelConfig, dtype) -> torch.Tensor:
-    """One query token per row against the whole cache, in f32.
+def _decode_attend(q, k_cache, v_cache, lengths, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """One query token per row against the cache as stored, in f32.
 
-    q (B, Hq, 1, d); kk, vv (B, Hkv, Smax, d); valid broadcastable to
-    (B, 1, 1, Smax).  Query heads are grouped by their KV head (the same
-    products as repeating the KV heads, without the copy)."""
+    q (B, Hq, 1, d); k_cache, v_cache (B, Smax, Hkv*d); row b attends
+    positions [0, lengths[b]).  Query heads are grouped by their KV head
+    (the same products as repeating the KV heads, without the copy)."""
     b, hq, _, d = q.shape
-    hkv = kk.shape[1]
-    qg = q.to(torch.float32).reshape(b, hkv, hq // hkv, d)
-    s = torch.einsum("bgrd,bgkd->bgrk", qg, kk.to(torch.float32))
-    s = s / (cfg.head_dim ** 0.5)
-    s = s.masked_fill(~valid, NEG_INF)
-    o = torch.einsum("bgrk,bgkd->bgrd", torch.softmax(s, dim=-1),
-                     vv.to(torch.float32))
-    return o.reshape(b, hq, 1, d).to(dtype)
+    o = kops.decode_attention(q.reshape(b, hq, d), k_cache, v_cache, lengths,
+                              scale=1.0 / cfg.head_dim ** 0.5)
+    return o.reshape(b, hq, 1, d)
 
 
 def gqa_decode(x, p: Params, cfg: ModelConfig, k_cache, v_cache, pos):
-    """One-token decode: write the caches at `pos`, attend over the whole
-    cache with the columns past `pos` masked, as the reference does.
+    """One-token decode: write the caches at `pos`, attend over
+    ``cache[:, :pos+1]``, as the reference does.
 
     ``pos`` is a device int32 scalar (or a Python int): the row is written
-    with a device-side index op and the mask is ``arange(Smax) <= pos``,
-    so no shape depends on it and nothing is read on the host — the body
-    a CUDA graph captures once per cache length.  k_cache/v_cache: (B,
-    Smax, Hkv*dh), updated in place (the reference returns new arrays;
-    the port writes the one cell).  Returns (out, k_cache, v_cache)."""
+    with a device-side index op and every row attends ``pos + 1``
+    positions, so no shape depends on it and nothing is read on the host —
+    the body a CUDA graph captures once per cache length.
+    k_cache/v_cache: (B, Smax, Hkv*dh), updated in place (the reference
+    returns new arrays; the port writes the one cell).  Returns (out,
+    k_cache, v_cache)."""
     b = x.shape[0]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     positions = pos.expand(b, 1)
@@ -284,10 +282,7 @@ def gqa_decode(x, p: Params, cfg: ModelConfig, k_cache, v_cache, pos):
     idx = pos.to(torch.long).reshape(1)
     k_cache.index_copy_(1, idx, _merge_heads(k).to(k_cache.dtype))
     v_cache.index_copy_(1, idx, _merge_heads(v).to(v_cache.dtype))
-    kk = _split_heads(k_cache, cfg.n_kv_heads)             # (B,Hkv,Smax,d)
-    vv = _split_heads(v_cache, cfg.n_kv_heads)
-    valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
-    o = _decode_attend(q, kk, vv, valid[None, None, None, :], cfg, x.dtype)
+    o = _decode_attend(q, k_cache, v_cache, (pos + 1).expand(b), cfg)
     out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
     return out, k_cache, v_cache
 
@@ -307,12 +302,8 @@ def gqa_decode_ragged(x, p: Params, cfg: ModelConfig, k_cache, v_cache,
     idx = pos_b.to(torch.long)
     k_cache[rows, idx] = _merge_heads(k)[:, 0].to(k_cache.dtype)
     v_cache[rows, idx] = _merge_heads(v)[:, 0].to(v_cache.dtype)
-    kk = _split_heads(k_cache, cfg.n_kv_heads)              # (B,Hkv,Smax,d)
-    vv = _split_heads(v_cache, cfg.n_kv_heads)
-    valid = (torch.arange(k_cache.shape[1], device=x.device)[None, None,
-                                                             None, :]
-             <= idx[:, None, None, None])
-    o = _decode_attend(q, kk, vv, valid, cfg, x.dtype)
+    o = _decode_attend(q, k_cache, v_cache, (pos_b + 1).to(torch.int32),
+                       cfg)
     out = torch.matmul(_merge_heads(o), p["wo"].to(x.dtype))
     return out, k_cache, v_cache
 
