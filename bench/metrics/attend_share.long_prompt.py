@@ -1,0 +1,20 @@
+"""The share of the profiled call's prefill spent in MLA's softmax
+attention: the ``mla.attend`` spans' ``device_ms`` over the
+``serve.prefill`` span's.  The decode steps' attention is a replay of a
+captured graph and records no span."""
+
+
+def read(rec):
+    if rec.get("driver") != "generate" or not rec.get("profile"):
+        return None
+    try:
+        from repro_torch.core import trace
+    except ImportError:
+        return None
+    ms = {"mla.attend": 0.0, "serve.prefill": 0.0}
+    for s in trace.spans():
+        if s.name in ms and s.device_ms is not None:
+            ms[s.name] += s.device_ms
+    if ms["mla.attend"] <= 0 or ms["serve.prefill"] <= 0:
+        return None
+    return ms["mla.attend"] / ms["serve.prefill"]

@@ -82,8 +82,19 @@ def _nest(flat: Mapping[Tuple[str, ...], Any]) -> Dict[str, Any]:
     return tree
 
 
+def require_stacked(cfg: ModelConfig) -> None:
+    """Raise for a model whose layers differ (``MoEConfig.first_dense``
+    dense layers before the MoE ones): the reference's tree stacks
+    identical layers over one L axis, so it has no layout for them."""
+    if cfg.moe is not None and cfg.moe.first_dense:
+        raise ValueError(
+            f"{cfg.name}: MoEConfig.first_dense={cfg.moe.first_dense} mixes "
+            "dense and MoE layers, which the stacked layer tree cannot hold")
+
+
 def _port_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     from repro_torch.models.model import Transformer   # avoid cycle
+    require_stacked(cfg)
     return Transformer(cfg, device="meta").state_dict()
 
 

@@ -94,7 +94,13 @@ def _shape(leaf: Any) -> Tuple[int, ...]:
 
 def param_specs(params: Pytree, mesh: LogicalMesh) -> Pytree:
     """Spec per parameter of the reference's stacked tree: widest divisible
-    trailing axis -> model."""
+    trailing axis -> model.  A tree whose layers hold both a gated MLP and
+    an MoE block (``MoEConfig.first_dense``) is not a stack of identical
+    layers and raises."""
+    layers = params.get("layers") if isinstance(params, Mapping) else None
+    if isinstance(layers, Mapping) and "mlp" in layers and "moe" in layers:
+        raise ValueError("layers hold both 'mlp' and 'moe' "
+                         "(MoEConfig.first_dense): not a stacked layer tree")
     tp = mesh.shape.get(TP_AXIS, 1)
 
     def rule(leaf) -> Spec:

@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import convert
 from repro_torch.dist.sharding import dp_axes
 from repro_torch.launch.cells import (
     SHAPES, Cell, applicable, cell_layout, make_cell,
@@ -147,6 +148,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     the count does not depend on the mesh (the mesh only sets the specs),
     so one count serves both production meshes."""
     cfg = get(arch)
+    convert.require_stacked(cfg)
     ok, why = applicable(cfg, shape)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     rec: Dict = {"arch": arch, "shape": shape, "mesh": mesh_name}

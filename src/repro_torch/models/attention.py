@@ -41,7 +41,8 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, rms_norm
+from repro_torch.core import trace
+from repro_torch.models.layers import apply_rope, rms_norm, yarn_mscale
 
 NEG_INF = -1e30
 IMPLS = ("plain", "chunked", "kernel", "stub", "auto")
@@ -108,11 +109,12 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor,
             v.repeat_interleave(hq // hkv, dim=1))
 
 
-def _plain_attention(q, k, v, mask) -> torch.Tensor:
+def _plain_attention(q, k, v, mask, scale: Optional[float] = None
+                     ) -> torch.Tensor:
     d = q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32))
-    s = s / (d ** 0.5)
+    s = s / (d ** 0.5) if scale is None else s * scale
     s = s.masked_fill(~mask[None, None], NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p,
@@ -153,7 +155,8 @@ def _chunk_step(m, l, acc, q32, kb, vb, start: int, skv: int,
 
 
 def _chunked_attention(q, k, v, *, prefix_len: int, chunk: int = 512,
-                       remat_chunk: bool = False) -> torch.Tensor:
+                       remat_chunk: bool = False,
+                       scale: Optional[float] = None) -> torch.Tensor:
     """Online softmax over KV chunks (flash attention in plain torch).
 
     k and v may have different head dims (MLA: qk = nope + rope, v =
@@ -166,11 +169,13 @@ def _chunked_attention(q, k, v, *, prefix_len: int, chunk: int = 512,
     scaled q and the chunk's K/V are kept, O(S) in place of O(S²/chunk) a
     chunk, for about one more forward of the chunks.  The body draws no
     random numbers, so the RNG state is not stashed.  The forward's result
-    is the same bits either way."""
+    is the same bits either way.  ``scale`` replaces 1/sqrt(d) (MLA's
+    YaRN factor)."""
     b, h, sq, d = q.shape
     dv = v.shape[-1]
     skv = k.shape[2]
-    q32 = q.to(torch.float32) / (d ** 0.5)
+    q32 = (q.to(torch.float32) / (d ** 0.5) if scale is None
+           else q.to(torch.float32) * scale)
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
@@ -200,11 +205,17 @@ def multihead_attention(
     prefix_len: int = 0,
     chunk: int = 512,
     remat_chunk: bool = False,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
+    """``scale``, the softmax's, is 1/sqrt(d) when None (every path); the
+    plain and chunked paths take another (MLA under YaRN)."""
     impl = resolve_impl(impl, q, k, v, prefix_len)
     if impl == "kernel":
         if prefix_len:
             raise NotImplementedError("prefix-LM uses plain/chunked")
+        if scale is not None:
+            raise NotImplementedError("the kernel scales by 1/sqrt(d); "
+                                      "another scale uses plain/chunked")
         # the kernel indexes KV head h // rep: nothing is repeated
         return kops.attention(q, k, v, causal=True, impl="kernel")
     k, v = _repeat_kv(k, v, q.shape[1])
@@ -212,9 +223,9 @@ def multihead_attention(
         return _stub_attention(q, v)
     if impl == "chunked":
         return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk,
-                                  remat_chunk=remat_chunk)
+                                  remat_chunk=remat_chunk, scale=scale)
     mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)
-    return _plain_attention(q, k, v, mask)
+    return _plain_attention(q, k, v, mask, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -322,7 +333,8 @@ def mla_project_q(x, p: Params, cfg: ModelConfig, positions):
                   m.qk_nope_head_dim + m.qk_rope_head_dim).transpose(1, 2)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions[:, None], cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions[:, None], cfg.rope_theta,
+                        cfg.rope_scaling)
     return q_nope, q_rope
 
 
@@ -334,8 +346,20 @@ def mla_compress_kv(x, p: Params, cfg: ModelConfig, positions):
     c, k_rope = torch.split(ckv, [m.kv_lora_rank, m.qk_rope_head_dim],
                             dim=-1)
     c = rms_norm(c, p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(k_rope[:, None], positions[:, None], cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, None], positions[:, None], cfg.rope_theta,
+                        cfg.rope_scaling)
     return c, k_rope
+
+
+def mla_scale(cfg: ModelConfig) -> Optional[float]:
+    """MLA's softmax scale: None (the plain 1/sqrt(nope + rope)) or, under
+    YaRN with an ``mscale_all_dim``, that times m(factor,
+    mscale_all_dim)²."""
+    m, rs = cfg.mla, cfg.rope_scaling
+    if rs is None or not rs.mscale_all_dim:
+        return None
+    return ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+            * yarn_mscale(rs.factor, rs.mscale_all_dim) ** 2)
 
 
 def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
@@ -344,7 +368,9 @@ def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
                   ) -> torch.Tensor:
     """Full-sequence MLA attention (``c``/``k_rope`` may be precomputed, as
     prefill does).  q and k have head dim nope + rope and v ``v_head_dim``,
-    so "auto" resolves to "plain" (the flash kernel takes one head dim)."""
+    so "auto" resolves to "plain" (the flash kernel takes one head dim).
+    Under YaRN the softmax scale is :func:`mla_scale`'s.  The attention
+    itself is the span ``mla.attend`` (device time on the card)."""
     m = cfg.mla
     dt = x.dtype
     b = x.shape[0]
@@ -357,15 +383,17 @@ def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
                              m.qk_rope_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope_b], dim=-1)
-    o = multihead_attention(q, k, v, impl=impl, chunk=chunk,
-                            remat_chunk=remat_chunk)
+    with trace.span("mla.attend", device=x.is_cuda):
+        o = multihead_attention(q, k, v, impl=impl, chunk=chunk,
+                                remat_chunk=remat_chunk,
+                                scale=mla_scale(cfg))
     return torch.matmul(_merge_heads(o), p["wo"].to(dt))
 
 
 def mla_decode(x, p: Params, cfg: ModelConfig, c_cache, rope_cache, pos):
     """One-token MLA decode against the compressed cache: ``wuk`` absorbed
-    into q, ``wuv`` applied after the softmax, the scale 1/sqrt(nope +
-    rope) as in the full-sequence path.
+    into q, ``wuv`` applied after the softmax, the scale :func:`mla_scale`
+    as in the full-sequence path.
 
     c_cache (B, Smax, rank), rope_cache (B, Smax, rope), written in place
     at ``pos`` (a device int32 scalar or a Python int) and attended over
@@ -390,7 +418,9 @@ def mla_decode(x, p: Params, cfg: ModelConfig, c_cache, rope_cache, pos):
     s = torch.einsum("bhqr,bsr->bhqs", q_c.to(torch.float32), c32)
     s = s + torch.einsum("bhqn,bsn->bhqs", q_rope.to(torch.float32),
                          rope_cache.to(torch.float32))
-    s = s / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+    scale = mla_scale(cfg)
+    s = (s / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
+         if scale is None else s * scale)
     valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
     s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
     o_c = torch.einsum("bhqs,bsr->bhqr", torch.softmax(s, dim=-1), c32)

@@ -10,7 +10,7 @@ patches, MusicGen EnCodec tokens).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +21,12 @@ class MoEConfig:
     n_shared: int = 0              # always-on shared experts
     router_noise: float = 0.0      # jitter for load balancing (train only)
     aux_loss_coef: float = 0.01    # load-balancing auxiliary loss
+    # port only: layers i < first_dense are dense (a gated MLP of the
+    # model's d_ff), as DeepSeek-V2's ``first_k_dense_replace``
+    first_dense: int = 0
+    # port only: False keeps the softmax's top-k probabilities as they are
+    # (DeepSeek-V2's ``norm_topk_prob``); True renormalises them to sum 1
+    norm_topk: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +35,29 @@ class MLAConfig:
     qk_nope_head_dim: int
     qk_rope_head_dim: int
     v_head_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN's rotary scaling as DeepSeek-V2 publishes it (``rope_scaling``
+    of its ``config.json``): the rotary frequencies blend the original and
+    the ``factor``-interpolated ones over a ramp between the dims that
+    ``beta_fast`` and ``beta_slow`` turns fit into
+    ``original_max_position_embeddings``, and the softmax scale gains
+    ``m(factor, mscale_all_dim)²`` (``layers.yarn_*``).  Port only."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+    type: str = "yarn"
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope_scaling type {self.type!r}: the port "
+                             "builds 'yarn' only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,11 +113,17 @@ class ModelConfig:
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     frontend: Optional[FrontendConfig] = None
+    # port only: YaRN frequencies and softmax factor (MLA's rope dims)
+    rope_scaling: Optional[RopeScaling] = None
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
 
     def __post_init__(self):
+        for name, kind in _NESTED.items():
+            value = getattr(self, name)
+            if isinstance(value, Mapping):
+                object.__setattr__(self, name, _coerce(kind, value, name))
         if self.n_heads and self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.family not in ("dense", "moe", "vlm", "hybrid", "audio", "ssm"):
@@ -133,6 +168,22 @@ class ModelConfig:
     def active_param_count(self) -> int:
         from repro_torch.models.registry import count_params
         return count_params(self, active_only=True)
+
+
+#: the nested parts a configuration file may give as plain mappings
+_NESTED = {"moe": MoEConfig, "mla": MLAConfig, "ssm": SSMConfig,
+           "hybrid": HybridConfig, "frontend": FrontendConfig,
+           "rope_scaling": RopeScaling}
+
+
+def _coerce(kind: type, value: Mapping[str, Any], name: str):
+    """``value``'s keys as ``kind``; a key ``kind`` lacks raises."""
+    names = {f.name for f in dataclasses.fields(kind)}
+    unknown = sorted(set(value) - names)
+    if unknown:
+        raise ValueError(f"{name}: unknown keys {unknown} for "
+                         f"{kind.__name__}")
+    return kind(**value)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

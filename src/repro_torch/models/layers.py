@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -36,13 +37,62 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """DeepSeek-V2's ``yarn_get_mscale``: 0.1 · mscale · ln(factor) + 1,
+    1 for a factor of at most 1."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_range(scaling, dim: int, theta: float) -> tuple:
+    """(low, high): the rotary dims (of ``dim // 2``) where ``beta_fast``
+    and ``beta_slow`` turns fit into the original context, floored and
+    ceiled, clamped to [0, dim - 1] (``yarn_find_correction_range``)."""
+    def at(turns: float) -> float:
+        return (dim * math.log(scaling.original_max_position_embeddings
+                               / (turns * 2 * math.pi))
+                / (2 * math.log(theta)))
+    return (max(math.floor(at(scaling.beta_fast)), 0),
+            min(math.ceil(at(scaling.beta_slow)), dim - 1))
+
+
+def yarn_freqs(dim: int, theta: float, scaling,
+               device: torch.device | str | None = None) -> torch.Tensor:
+    """YaRN's frequencies (dim/2,): the original ones (``f_extra``) below
+    ``low``, those divided by ``factor`` (``f_inter``) above ``high``, a
+    linear ramp between."""
+    extra = rope_freqs(dim, theta, device)
+    low, high = yarn_range(scaling, dim, theta)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low) / (high - low),
+                       0.0, 1.0)
+    mask = 1.0 - ramp
+    return extra / scaling.factor * (1.0 - mask) + extra * mask
+
+
+def yarn_attn_factor(scaling) -> float:
+    """The factor of YaRN's cos and sin: m(factor, mscale) / m(factor,
+    mscale_all_dim)."""
+    return (yarn_mscale(scaling.factor, scaling.mscale)
+            / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """NeoX-style half-rotation.  x: (..., S, D_head); positions: (..., S)."""
+               theta: float, scaling=None) -> torch.Tensor:
+    """NeoX-style half-rotation.  x: (..., S, D_head); positions: (..., S).
+    ``scaling`` (a ``RopeScaling``) takes YaRN's frequencies and factor;
+    without it nothing else is computed."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                        # (d/2,)
+    if scaling is None:
+        freqs = rope_freqs(d, theta, x.device)                    # (d/2,)
+    else:
+        freqs = yarn_freqs(d, theta, scaling, x.device)
     angles = positions[..., None].to(torch.float32) * freqs       # (..., S, d/2)
     cos, sin = torch.cos(angles), torch.sin(angles)
+    gain = 1.0 if scaling is None else yarn_attn_factor(scaling)
+    if gain != 1.0:
+        cos, sin = cos * gain, sin * gain
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -14,7 +14,10 @@ over L becomes ``layers.<i>.attn.wq``, ``layers/moe/experts/wi`` becomes
 ``layers.<i>.moe.experts.wi``, ``layers/mixer/A_log`` becomes
 ``layers.<i>.mixer.A_log``; ``shared_block/attn/wq`` is not stacked and
 stays ``shared_block.attn.wq``), so ``convert.model_params_from_numpy``
-maps one onto the other.  The
+maps one onto the other.  A port-only ``MoEConfig.first_dense`` makes the
+first layers dense (DeepSeek-V2's ``first_k_dense_replace``:
+``layers.0.mlp.*`` beside ``layers.<i>.moe.*``), which no stacked tree
+holds, so the converter refuses it.  The
 reference's ``lax.scan`` over the stacked layers is a loop over the
 ``ModuleList``, and its ``lax.cond`` on the layer index (the shared block
 after every ``period``-th layer) a Python test on the loop's index; every
@@ -229,18 +232,25 @@ class MoE(nn.Module):
                               device)
 
 
+def moe_layer(cfg: ModelConfig, i: int) -> bool:
+    """Whether decoder layer ``i`` holds an MoE block: every layer of an
+    MoE model from ``moe.first_dense`` on (the ones before are dense)."""
+    return cfg.moe is not None and i >= cfg.moe.first_dense
+
+
 class DecoderLayer(nn.Module):
     """A decoder layer: ``ln1``, GQA (``Attention``) or MLA
-    (``MLAAttention``) attention, ``ln2``, and a gated MLP (``mlp``) or an
-    MoE block (``moe``)."""
+    (``MLAAttention``) attention, ``ln2``, and a gated MLP (``mlp``, of
+    width ``d_ff``) or an MoE block (``moe``), as :func:`moe_layer` says
+    for layer ``index``."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, index: int = 0):
         super().__init__()
         self.ln1 = _param((cfg.d_model,), dtype, device)
         self.ln2 = _param((cfg.d_model,), dtype, device)
         self.attn = (MLAAttention if cfg.mla else Attention)(cfg, dtype,
                                                              device)
-        if cfg.moe:
+        if moe_layer(cfg, index):
             self.moe = MoE(cfg, dtype, device)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, device)
@@ -340,10 +350,13 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab_size), dtype,
                                   device)
-        layer = (MambaLayer if cfg.family in ("ssm", "hybrid")
-                 else DecoderLayer)
-        self.layers = nn.ModuleList(
-            layer(cfg, dtype, device) for _ in range(cfg.n_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            layers = (MambaLayer(cfg, dtype, device)
+                      for _ in range(cfg.n_layers))
+        else:
+            layers = (DecoderLayer(cfg, dtype, device, i)
+                      for i in range(cfg.n_layers))
+        self.layers = nn.ModuleList(layers)
         if cfg.family == "hybrid":
             self.shared_block = SharedBlock(cfg, dtype, device)
 
@@ -465,7 +478,7 @@ def init_params(cfg: ModelConfig, *,
                     _init_mla_(layer.attn, g)
                 else:
                     _init_attention_(layer.attn, cfg.qkv_bias, g)
-                if cfg.moe:
+                if hasattr(layer, "moe"):
                     _init_moe_(layer.moe, g)
                 else:
                     _init_mlp_(layer.mlp, g)
@@ -546,8 +559,8 @@ def _mlp(h, lp, cfg: ModelConfig):
 def _ffn(h, lp, cfg: ModelConfig, no_drop: bool
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """A decoder layer's second half: its MoE block (-> (delta, aux)) or
-    its gated MLP (-> (delta, None))."""
-    if cfg.moe:
+    its gated MLP (-> (delta, None)), whichever the layer ``lp`` holds."""
+    if "moe" in lp:
         return moe_lib.moe_block(h, lp["moe"], cfg, no_drop=no_drop)
     return _mlp(h, lp, cfg), None
 

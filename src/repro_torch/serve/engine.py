@@ -109,6 +109,10 @@ SERVE_CALL = CallConfig(moe_no_drop=True)
 #: whatever wait for the device its own calls meet
 HOST_NS = ("call_host_ns", "insert_host_ns", "step_host_ns",
            "retire_host_ns", "drain_host_ns")
+#: every counter of ``stats`` the reference's engine does not keep: the
+#: host nanoseconds above, and ``generate``'s prefilled positions and
+#: host nanoseconds
+PORT_COUNTERS = HOST_NS + ("prefill_tokens", "generate_host_ns")
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -282,7 +286,7 @@ class ServeEngine:
                       "tokens_emitted": 0, "prefill_inserts": 0,
                       "requests_retired": 0, "batch_padded_rows": 0,
                       "h2d_bytes": 0, "d2d_bytes": 0,
-                      **dict.fromkeys(HOST_NS, 0)}
+                      **dict.fromkeys(PORT_COUNTERS, 0)}
 
     # -- placement (weights + prefill inserts) -------------------------------------
 
@@ -353,7 +357,20 @@ class ServeEngine:
         d_model)}`` for the vision stub, whose P positions come before the
         prompt's in the cache.  A prefill longer than ``scfg.max_len``
         raises :class:`ValueError`.
+
+        ``stats`` counts the positions prefilled (``prefill_tokens``, the
+        padded batch times the prompt) and the call's host nanoseconds
+        (``generate_host_ns``); the call records the spans
+        ``serve.generate``, ``serve.prefill``, ``serve.step`` (each decode
+        replay) and ``serve.drain`` while tracing is on.
         """
+        t0 = time.perf_counter_ns()
+        with trace.span("serve.generate"):
+            out = self._generate(prompts, n_new, extra_inputs)
+        self.stats["generate_host_ns"] += time.perf_counter_ns() - t0
+        return out
+
+    def _generate(self, prompts, n_new, extra_inputs) -> np.ndarray:
         model = self._model()
         prompts = np.asarray(prompts)
         extra = {k: np.asarray(v) for k, v in (extra_inputs or {}).items()}
@@ -385,8 +402,10 @@ class ServeEngine:
         batch = {k: torch.as_tensor(v).to(self.device)
                  for k, v in dict(extra, tokens=prompts).items()}
         state = self._state()
-        logits, _ = prefill(model, self.cfg, batch, self.scfg.max_len,
-                            self.call, cache=state.cache)
+        with trace.span("serve.prefill", device=self._card):
+            logits, _ = prefill(model, self.cfg, batch, self.scfg.max_len,
+                                self.call, cache=state.cache)
+        self.stats["prefill_tokens"] += prompts.size
         if mode == "host":
             out = self._generate_host_loop(model, logits, state, n_new)
         else:
@@ -451,7 +470,9 @@ class ServeEngine:
 
             while steps - done >= c:
                 job = self._dispatch_begin()
-                toks.append(self._program("chunk", c, make_chunk, copy=True))
+                with trace.span("serve.step", device=self._card):
+                    toks.append(self._program("chunk", c, make_chunk,
+                                              copy=True))
                 self._dispatch_end(job, tokens=c)
                 done += c
         if done < steps:
@@ -467,10 +488,12 @@ class ServeEngine:
 
             while done < steps:
                 job = self._dispatch_begin()
-                toks.append(self._program("step", 1, make_step).clone())
+                with trace.span("serve.step", device=self._card):
+                    toks.append(self._program("step", 1, make_step).clone())
                 self._dispatch_end(job, tokens=1)
                 done += 1
-        out = torch.cat(toks, dim=1).cpu().numpy()     # the one drain
+        with trace.span("serve.drain"):
+            out = torch.cat(toks, dim=1).cpu().numpy()     # the one drain
         if out.shape[1] != n_new:
             raise AssertionError((out.shape, n_new))
         return out
@@ -497,7 +520,8 @@ class ServeEngine:
             job = self._dispatch_begin()
             state.tok.copy_(tok[:, None])          # the upload
             self.stats["h2d_token_puts"] += 1
-            logits = self._program("host", 1, make_step)
+            with trace.span("serve.step", device=self._card):
+                logits = self._program("host", 1, make_step)
             tok = sample(logits[:, 0].cpu(), gen)
             self._dispatch_end(job, tokens=1)
         return torch.stack(out, dim=1).numpy()

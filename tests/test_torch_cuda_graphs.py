@@ -633,3 +633,27 @@ def test_decode_captured_on_card(cuda, tag):
         for got in outs.values():
             for o in got:
                 np.testing.assert_array_equal(o, outs[("step", False)][0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cdt", ["float32", "bfloat16"])
+def test_moe_decode_captured_on_card(cuda, cdt):
+    """The reduced DeepSeek-V2-Lite's decode step, its drop-less MoE on the
+    grouped products (bf16) or on the (E·T, D) buffer (f32, where
+    ``torch._grouped_mm`` would read its offsets on the host), captured:
+    the greedy tokens of the eager bodies."""
+    cfg = dataclasses.replace(T.reduced(T.get("deepseek-v2-lite-16b")),
+                              compute_dtype=cdt)
+    model = T.init_params(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    outs = {}
+    for mode, captured in (("step", False), ("step", True), ("chunk", True)):
+        eng = ServeEngine(cfg, model, ServeConfig(
+            batch=B, max_len=MAXLEN, decode_mode=mode, decode_chunk=CHUNK))
+        if not captured:
+            eng.graphs = _eager(eng.device)
+        outs[(mode, captured)] = eng.generate(prompts, NEW)
+    for o in outs.values():
+        np.testing.assert_array_equal(o, outs[("step", False)])

@@ -802,3 +802,223 @@ def test_serve_cli_serves_the_moe_family_on_cpu(capsys, arch):
         t_cli.main(argv)
         assert "continuous on cpu: 3 requests, 9 tokens" in \
             capsys.readouterr().out
+
+
+# -- the published DeepSeek-V2-Lite's parts (port only) -------------------------
+
+
+def _published_small(norm_topk=False, first_dense=1):
+    """reduced(deepseek) with a dense first layer, unnormalised top-k and
+    DeepSeek-V2-Lite's YaRN, in float32."""
+    from repro_torch.models.config import RopeScaling
+    cfg = T.reduced(T.get(DEEPSEEK))
+    return dataclasses.replace(
+        cfg, n_layers=3, compute_dtype="float32",
+        moe=dataclasses.replace(cfg.moe, first_dense=first_dense,
+                                norm_topk=norm_topk),
+        rope_scaling=RopeScaling(factor=40, original_max_position_embeddings=
+                                 4096, beta_fast=32, beta_slow=1,
+                                 mscale=0.707, mscale_all_dim=0.707))
+
+
+def _block_inputs(cfg, dtype, t=24, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    m, d = cfg.moe, cfg.d_model
+
+    def rn(*shape, fan):
+        return torch.randn(*shape, generator=g) * fan ** -0.5
+    p = {"router": rn(d, m.n_experts, fan=d),
+         "experts": {"wi": rn(m.n_experts, d, m.d_ff_expert, fan=d),
+                     "wg": rn(m.n_experts, d, m.d_ff_expert, fan=d),
+                     "wo": rn(m.n_experts, m.d_ff_expert, d,
+                              fan=m.d_ff_expert)},
+         "shared": {"wi": rn(d, m.d_ff_expert, fan=d),
+                    "wg": rn(d, m.d_ff_expert, fan=d),
+                    "wo": rn(m.d_ff_expert, d, fan=m.d_ff_expert)}}
+    x = torch.randn(2, t // 2, d, generator=g).to(dtype)
+    return x, p
+
+
+def _buffer_block(x, p, cfg):
+    """Today's drop-less dispatch: the (E, T, D) buffer of
+    ``capacity(no_drop=True)``, every expert over every token's slot."""
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    t = xf.shape[0]
+    vals, idx = t_moe.route(torch.softmax(
+        xf.float() @ p["router"].float(), dim=-1), m.top_k)
+    if m.norm_topk:
+        vals = vals / vals.sum(-1, keepdim=True).clamp(min=1e-9)
+    return t_moe._capacity_block(
+        x, xf, p, cfg, idx.T.reshape(-1), vals.T.reshape(-1),
+        t_moe.capacity(t, m.n_experts, m.top_k, no_drop=True))
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+@pytest.mark.parametrize("norm_topk", [True, False])
+def test_grouped_experts_equal_the_buffer(cdt, norm_topk):
+    """The grouped drop-less dispatch against the (E·T, D) buffer it
+    replaces: float32 within 1e-6 relative (other sums' orders), bf16
+    within one bf16 rounding of the result (2^-8 of each value, 2^-8 of
+    the output's largest for values near zero)."""
+    cfg = _published_small(norm_topk)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=8, top_k=3))
+    x, p = _block_inputs(cfg, getattr(torch, cdt))
+    got, _ = t_moe.moe_block(x, p, cfg, no_drop=True)
+    want = _buffer_block(x, p, cfg)
+    assert got.dtype == want.dtype == x.dtype
+    if cdt == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        gap = (got.float() - want.float()).abs()
+        room = 2.0 ** -8 * (want.float().abs() + want.float().abs().max())
+        assert bool((gap <= room).all()), float((gap - room).max())
+
+
+def test_norm_topk_false_keeps_the_softmax_weights():
+    """Without renormalising, a token's routed part is its top-k softmax
+    probabilities times its experts' outputs (DeepSeek-V2)."""
+    cfg = _published_small(norm_topk=False)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           n_shared=0))
+    x, p = _block_inputs(cfg, torch.float32, t=4)
+    y, _ = t_moe.moe_block(x, p, cfg, no_drop=True)
+    xf = x.reshape(-1, cfg.d_model)
+    probs = torch.softmax(xf @ p["router"], dim=-1)
+    vals, idx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    ex = p["experts"]
+    want = torch.stack([sum(
+        vals[i, j] * (torch.nn.functional.silu(xf[i] @ ex["wg"][e])
+                      * (xf[i] @ ex["wi"][e])) @ ex["wo"][e]
+        for j, e in enumerate(idx[i].tolist())) for i in range(xf.shape[0])])
+    torch.testing.assert_close(y.reshape(-1, cfg.d_model), want,
+                               rtol=1e-5, atol=1e-5)
+    assert float(vals.sum(-1).max()) < 0.999     # so the flag matters
+
+
+def test_grouped_experts_keep_fixed_shapes_on_meta():
+    """The grouped path on meta tensors (no values, so no host read and no
+    shape that depends on the routing): its rows are T·k, whatever the
+    routing, as a captured decode step needs."""
+    cfg = _published_small()
+    m = cfg.moe
+    xf = torch.empty((10, cfg.d_model), device="meta", dtype=torch.bfloat16)
+    e_flat = torch.empty((10 * m.top_k,), device="meta", dtype=torch.long)
+    ex = {n: torch.empty(s, device="meta") for n, s in (
+        ("wi", (m.n_experts, cfg.d_model, m.d_ff_expert)),
+        ("wg", (m.n_experts, cfg.d_model, m.d_ff_expert)),
+        ("wo", (m.n_experts, m.d_ff_expert, cfg.d_model)))}
+    y = t_moe.grouped_experts(xf, e_flat, ex, cfg)
+    assert y.shape == (10 * m.top_k, cfg.d_model) and y.dtype == xf.dtype
+
+
+def test_grouped_experts_only_for_bf16_on_the_card():
+    """On the card ``torch._grouped_mm`` reads its offsets on the device for
+    bf16 alone; every other dtype there keeps the buffer.  Off the card
+    every dtype is grouped."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert t_moe.takes_grouped(cuda, torch.bfloat16)
+    for dt in (torch.float32, torch.float16):
+        assert not t_moe.takes_grouped(cuda, dt)
+    for dev in (cpu, torch.device("meta")):
+        for dt in (torch.float32, torch.bfloat16):
+            assert t_moe.takes_grouped(dev, dt)
+
+
+@pytest.mark.parametrize("cdt", DTYPES)
+def test_drop_less_block_without_grouping_is_the_buffer(monkeypatch, cdt):
+    """Where :func:`takes_grouped` says no (f32 on the card), the drop-less
+    block is the (E·T, D) buffer, bit for bit."""
+    cfg = _published_small()
+    x, p = _block_inputs(cfg, getattr(torch, cdt))
+    monkeypatch.setattr(t_moe, "takes_grouped", lambda device, dtype: False)
+    got, _ = t_moe.moe_block(x, p, cfg, no_drop=True)
+    assert torch.equal(got, _buffer_block(x, p, cfg))
+
+
+
+def test_yarn_constants_of_the_port():
+    """DeepSeek-V2-Lite's YaRN: the ramp between rotary dims 10 and 23 of
+    32, m(40, 0.707)² = 1.58963 on MLA's softmax, cos and sin unscaled."""
+    from repro_torch.models import layers as L
+    rs = _published_small().rope_scaling
+    assert L.yarn_range(rs, 64, 10000.0) == (10, 23)
+    assert abs(L.yarn_mscale(40, 0.707) ** 2 - 1.58963) < 1e-5
+    assert L.yarn_attn_factor(rs) == 1.0
+    i = torch.arange(32, dtype=torch.float32)
+    extra = 1.0 / 10000.0 ** (2 * i / 64)
+    ramp = ((i - 10) / 13).clamp(0, 1)
+    want = extra / 40 * ramp + extra * (1 - ramp)
+    torch.testing.assert_close(L.yarn_freqs(64, 10000.0, rs), want,
+                               rtol=1e-6, atol=0)
+    full = dataclasses.replace(T.get(DEEPSEEK), rope_scaling=rs)
+    assert abs(t_attn.mla_scale(full) * 192 ** 0.5 - 1.58963) < 1e-5
+    assert t_attn.mla_scale(T.get(DEEPSEEK)) is None
+    # without YaRN the rotation is the plain one, bit for bit
+    x = torch.randn(2, 3, 5, 64)
+    pos = torch.arange(5)[None].expand(2, 5)[:, None]
+    freqs = L.rope_freqs(64, 10000.0)
+    ang = pos[..., None].float() * freqs
+    x1, x2 = x.chunk(2, -1)
+    plain = torch.cat([x1 * ang.cos() - x2 * ang.sin(),
+                       x2 * ang.cos() + x1 * ang.sin()], -1)
+    assert torch.equal(L.apply_rope(x, pos, 10000.0), plain)
+    assert not torch.allclose(L.apply_rope(x, pos, 10000.0, rs), plain)
+
+
+def test_first_dense_layers_and_their_forward():
+    """Layers before ``first_dense`` hold a gated MLP of ``d_ff`` under
+    ``layers.<i>.mlp``, the rest ``layers.<i>.moe``; the model runs."""
+    cfg = _published_small()
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    names = dict(model.named_parameters())
+    assert names["layers.0.mlp.wi"].shape == (cfg.d_model, cfg.d_ff)
+    assert not any(n.startswith("layers.0.moe.") for n in names)
+    assert names["layers.1.moe.experts.wi"].shape[0] == cfg.moe.n_experts
+    assert not any(n.startswith("layers.1.mlp.") for n in names)
+    assert TM.moe_layer(cfg, 1) and not TM.moe_layer(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6))
+    logits, aux = TM.forward(model, cfg, {"tokens": tokens})
+    assert logits.shape == (2, 6, cfg.vocab_size)
+    assert torch.isfinite(logits).all() and float(aux) > 0
+
+
+def test_config_coerces_nested_mappings():
+    """A configuration file's nested parts, plain mappings, become their
+    dataclasses; a key the part lacks raises."""
+    from repro_torch.models.config import (
+        MLAConfig, ModelConfig, MoEConfig, RopeScaling,
+    )
+    want = _published_small()
+    d = dataclasses.asdict(want)
+    got = ModelConfig(**d)
+    assert isinstance(got.moe, MoEConfig) and isinstance(got.mla, MLAConfig)
+    assert isinstance(got.rope_scaling, RopeScaling) and got == want
+    with pytest.raises(ValueError, match="unknown keys"):
+        ModelConfig(**{**d, "moe": {**d["moe"], "n_routed": 3}})
+    with pytest.raises(ValueError, match="yarn"):
+        ModelConfig(**{**d, "rope_scaling": {**d["rope_scaling"],
+                                             "type": "linear"}})
+
+
+def test_stacked_layer_paths_refuse_first_dense(monkeypatch):
+    """The reference's stacked tree, its specs and the dry-run have no
+    layout for dense layers before MoE ones: they raise, naming the
+    field."""
+    from repro_torch.dist.sharding import LogicalMesh, param_specs
+    from repro_torch.launch import dryrun
+    cfg = _published_small()
+    with pytest.raises(ValueError, match="first_dense"):
+        convert.reference_shapes(cfg)
+    model = T.init_params(cfg, device="meta")
+    with pytest.raises(ValueError, match="first_dense"):
+        convert.model_params_to_numpy(model, cfg)
+    with pytest.raises(ValueError, match="first_dense"):
+        convert.model_params_from_numpy({}, cfg)
+    tree = {"layers": {"mlp": {}, "moe": {}}}
+    with pytest.raises(ValueError, match="first_dense"):
+        param_specs(tree, LogicalMesh(("data", "model"), (1, 2)))
+    monkeypatch.setattr(dryrun, "get", lambda arch: cfg)
+    with pytest.raises(ValueError, match="first_dense"):
+        dryrun.run_cell(DEEPSEEK, "decode_32k", False)

@@ -193,6 +193,54 @@ def test_generate_many_spans_each_request(tiny):
     assert 0 <= own[call.id] < call.end_ns - call.start_ns
 
 
+@pytest.mark.parametrize("mode", ["step", "chunk"])
+def test_generate_spans_and_counters(tiny, mode):
+    """``generate`` records its call, its prefill, one ``serve.step`` a
+    decode dispatch and one drain, under the call; it counts the padded
+    batch's prefilled positions and its host time."""
+    cfg, model = tiny
+    eng = ServeEngine(cfg, model, ServeConfig(batch=3, max_len=32,
+                                              decode_mode=mode,
+                                              decode_chunk=2), device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 7),
+                                                dtype=np.int32)
+    with trace.recording():
+        out = eng.generate(prompts, 6)
+    assert out.shape == (2, 6)
+    by = {}
+    for s in trace.spans():
+        by.setdefault(s.name, []).append(s)
+    call, = by["serve.generate"]
+    for name in ("serve.prefill", "serve.step", "serve.drain"):
+        assert {s.parent for s in by[name]} == {call.id}
+    assert len(by["serve.prefill"]) == len(by["serve.drain"]) == 1
+    # the prefill's token is a dispatch of its own, not a replay
+    assert len(by["serve.step"]) == eng.stats["xla_dispatches"] - 1
+    assert eng.stats["prefill_tokens"] == 3 * 7
+    assert 0 < eng.stats["generate_host_ns"]
+    assert eng.stats["generate_host_ns"] >= call.end_ns - call.start_ns - (
+        10 ** 6)
+
+
+def test_moe_and_mla_spans_of_a_prefill():
+    """An eager prefill of an MLA + MoE model records ``mla.attend`` a
+    layer and ``moe.route``, ``moe.experts``, ``moe.combine`` a MoE
+    layer (the dense first layer has none)."""
+    import dataclasses
+    cfg = T.reduced(T.get("deepseek-v2-lite-16b"), n_layers=3)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                           first_dense=1))
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 5))
+    call = T.CallConfig(moe_no_drop=True)
+    with trace.recording():
+        T.prefill(model, cfg, {"tokens": tokens}, 8, call)
+    names = [s.name for s in trace.spans()]
+    assert names.count("mla.attend") == 3
+    for name in ("moe.route", "moe.experts", "moe.combine"):
+        assert names.count(name) == 2
+
+
 def test_train_step_spans(tiny):
     step = _train_step(tiny)
     with trace.recording():
