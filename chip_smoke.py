@@ -128,7 +128,10 @@ no JAX and nothing of the reference package.
    head dims).  Its decode step against the full-sequence path in float32
    compute (relative L2 within 1e-3; the bf16 figure printed), prefill
    and decode times, peak memory, the top device ops of a prefill and a
-   captured step, then ``graphs_phase``.  Then llama4-scout-17b-a16e at
+   captured step, then ``graphs_phase``.  Then the same prompts through
+   ``generate`` as the long-prompt cell calls it (attn_impl "chunked",
+   chunk 512): the MLA kernel launched once a layer in its prefill (27),
+   counted from 0 and summed into the kernels line.  Then llama4-scout-17b-a16e at
    its reduced size (MoE with GQA; the full model is 431 GB of f32):
    ``generate`` in every mode and ``generate_many`` (the MoE ragged step),
    one flash launch a layer a prefill, its prefill logits with the flash
@@ -262,7 +265,8 @@ LARGE_SHAPES = {
 NS = (1, 8, 32)
 FUSE = 8
 KERNEL_JOBS = ("axpy", "matmul", "atax", "covariance")
-MODEL_KERNELS = ("flash_attention", "ssm_scan", "decode_attention")
+MODEL_KERNELS = ("flash_attention", "ssm_scan", "decode_attention",
+                 "mla_attention")
 #: the serving phase: Yi-9B at its published width
 SERVE_ARCH = "yi-9b"
 SERVE_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
@@ -283,10 +287,11 @@ PREFILL_TOL = {"float32": dict(rtol=1e-3, atol=1e-3),
 FLASH_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
              "bfloat16": dict(rtol=1e-2, atol=1e-2)}
 #: the instructions each redesigned kernel must hold in its SASS (every
-#: instance, by the kernel's name): the bf16 flash kernel a tensor-core
-#: product, the fp64 matmul and covariance DMMA, atax the bulk copy
-#: (cp.async.bulk) that brings its row panels in
+#: instance, by the kernel's name): the bf16 flash and MLA kernels a
+#: tensor-core product, the fp64 matmul and covariance DMMA, atax the bulk
+#: copy (cp.async.bulk) that brings its row panels in
 SASS_NEEDS = {"flash_wgmma_kernel": ("HGMMA", "HMMA"),
+              "mla_attention_kernel": ("HGMMA",),
               "matmul_dmma_kernel": ("DMMA",),
               "cov_dmma_kernel": ("DMMA",),
               "atax_cluster_kernel": ("UBLKCP",)}
@@ -345,6 +350,23 @@ FRONTEND_STATIC = dict(batch=4, prompt_len=512, new_tokens=32, decode_chunk=8)
 AUDIO_FLASH_SHAPE = ((4, 32, 512, 64), (4, 32, 512, 64))
 #: smollm-360m's trained-weights forward (train_phase): 15/5 heads of 64
 TRAIN_FLASH_SHAPE = ((8, 15, 2048, 64), (8, 5, 2048, 64))
+#: the MLA kernel at the long-prompt cell's longest call: (B, H, S),
+#: q/k of 192 and v of 128, and DeepSeek-V2-Lite's softmax scale under its
+#: YaRN (m(40, 0.707)² / sqrt(192)); the checks' shapes (B, H, Sq, Skv),
+#: held to the f32 loop within MLA_REL_L2 (one bf16 rounding of an f32
+#: result is about 1.6e-3 relative L2)
+MLA_SHAPE = (4, 16, 13777)
+MLA_SCALE = 1.5896321 / 192 ** 0.5
+MLA_CHECKS = ((1, 2, 64, 64), (2, 4, 300, 300), (1, 2, 100, 300),
+              (1, 2, 130, 65), (4, 16, 4871, 4871))
+MLA_REL_L2 = 4e-3
+#: at MLA_SHAPE, the share of outputs that are not the f32 loop's result
+#: rounded to bf16: P split into a bf16 head and tail leaves 0.81 % (one
+#: ulp each), P rounded to bf16 alone 37 % (measured on an H100), so this
+#: bar holds the kernel to the split
+MLA_OFF_ROUNDED = 2e-2
+#: the bf16 peak the benchmark's shares read (bench/work.py)
+MLA_PEAK_OPS_PER_S = 989.4e12
 #: Yi-9B's batch-decode step: (rows, query heads, positions, KV heads, d)
 DECODE_SHAPE = (256, 32, 1024, 4, 128)
 #: every GQA/MHA configuration of the registry: (Hq, Hkv, d) and a name
@@ -651,6 +673,117 @@ def flash_phase(check, report, time_ms):
     timed(*AUDIO_FLASH_SHAPE, "musicgen prefill")  # head dim 64
     timed(*TRAIN_FLASH_SHAPE, "smollm forward")    # GQA 15/5, 2048
     timed(*FLASH_OPS_SHAPE, "operations-bound")
+    return row
+
+
+def mla_phase(check, report, time_ms):
+    """The MLA kernel against the chunked loop run in f32 on the card, and
+    its times at the long-prompt cell's longest call: the kernel's device
+    ms, its bound (the least causal operations, 2·(192 + 128) per visible
+    (row, column) pair and head, at the bf16 peak), the loop's ms as the
+    port ran it before the kernel (bf16 in), and
+    ``scaled_dot_product_attention``'s where it takes 192/128 (a yardstick
+    only: the port never calls it).  Returns the timed row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, ops
+    from repro_torch.models import attention as attn
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(47)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def loop(q, k, v):
+        return attn._chunked_attention(q, k, v, prefix_len=0, chunk=512,
+                                       scale=MLA_SCALE)
+
+    def rel_l2(got, want):
+        d = got.double() - want.double()
+        return (d.norm() / want.double().norm()).item()
+
+    print("== MLA attention against the f32 chunked loop", flush=True)
+    for b, h, sq, skv in MLA_CHECKS:
+        q, k, v = rnd(b, h, sq, 192), rnd(b, h, skv, 192), rnd(b, h, skv, 128)
+        got = ops.mla_attention(q, k, v, scale=MLA_SCALE, impl="kernel")
+        err = rel_l2(got, loop(q.float(), k.float(), v.float()))
+        ok = bool(torch.isfinite(got.float()).all()) and err <= MLA_REL_L2
+        report["kernel_checks"].append(
+            {"kernel": "mla_attention", "shapes": [[b, h, sq, skv]],
+             "dtype": "torch.bfloat16", "rel_l2": err, "tol": MLA_REL_L2,
+             "ok": ok})
+        check(ok, f"mla_attention q{[b, h, sq, 192]} kv{[b, h, skv]}: "
+                  f"relative L2 {err:.3g} to the f32 loop, bar {MLA_REL_L2}")
+        print(f"  ({b}, {h}, {sq}, {skv}): relative L2 {err:.3g}", flush=True)
+        del q, k, v, got
+
+    b, h, s = MLA_SHAPE
+    q, k, v = rnd(b, h, s, 192), rnd(b, h, s, 192), rnd(b, h, s, 128)
+    before = build.KERNELS["mla_attention"].launches
+    got = attn.multihead_attention(q, k, v, impl="chunked", scale=MLA_SCALE)
+    check(build.KERNELS["mla_attention"].launches == before + 1,
+          "the chunked MLA call did not launch the MLA kernel")
+    want = loop(q.float(), k.float(), v.float())
+    err = rel_l2(got, want)
+    max_err = (got.double() - want.double()).abs().max().item()
+    off = (got != want.to(torch.bfloat16)).double().mean().item()
+    check(err <= MLA_REL_L2, f"mla_attention {list(MLA_SHAPE)}: relative "
+                             f"L2 {err:.3g} to the f32 loop")
+    check(off <= MLA_OFF_ROUNDED,
+          f"mla_attention {list(MLA_SHAPE)}: {off:.4f} of the outputs are "
+          f"not the f32 loop's rounded to bf16, bar {MLA_OFF_ROUNDED}")
+    del got, want
+    torch.cuda.empty_cache()
+
+    def kernel(q, k, v):
+        return ops.mla_attention(q, k, v, scale=MLA_SCALE, impl="kernel")
+
+    def events_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    nops = 2 * (192 + 128) * b * h * s * (s + 1) // 2
+    row = {"kernel": "mla_attention", "tag": "long-prompt prefill",
+           "dtype": str(torch.bfloat16),
+           "shapes": [[b, h, s, 192], [b, h, s, 128]], "rel_l2": err,
+           "off_rounded": off, "max_abs_err": max_err, "ms": time_ms(lambda: kernel(q, k, v)),
+           "device_ms": device_ms(kernel, [(q, k, v)]),
+           "plain_ms": events_ms(lambda: loop(q, k, v), 3),
+           "bound_ms": nops / MLA_PEAK_OPS_PER_S * 1e3,
+           "bound_by": "operations"}
+    try:
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  scale=MLA_SCALE)
+        row["library_ms"] = events_ms(lambda: sdpa(q, k, v), 3)
+        row["library_device_ms"] = device_ms(sdpa, [(q, k, v)])
+    except RuntimeError as e:     # no backend for 192/128, or no memory
+        row["library_ms"] = row["library_device_ms"] = None
+        row["library_error"] = str(e).splitlines()[0][:200]
+    del q, k, v
+    torch.cuda.empty_cache()
+    report["kernel_times"].append(row)
+    lib = ("-" if row["library_ms"] is None else
+           f"{row['library_ms']:.3f} ms (device "
+           f"{row['library_device_ms']:.3f})")
+    print(f"  time mla_attention bf16 ({b}, {h}, {s}, 192/128), causal, "
+          f"YaRN scale: relative L2 {err:.4g}, {off:.4f} off the f32 loop "
+          f"rounded; kernel {row['ms']:.3f} ms (device "
+          f"{row['device_ms']:.3f}), bound {row['bound_ms']:.3f} ms "
+          f"({nops} ops at {MLA_PEAK_OPS_PER_S:.4g}/s; "
+          f"{row['bound_ms'] / row['device_ms']:.3f} of the peak), chunked "
+          f"loop {row['plain_ms']:.1f} ms, library_ms {lib}"
+          + (f" ({row['library_error']})" if row["library_ms"] is None
+             else ""), flush=True)
     return row
 
 
@@ -1175,12 +1308,16 @@ def moe_serving_phase(check, report):
     width and depth through ``ServeEngine`` (``serve_state_model``): MLA
     attention (q/k of 192, v of 128, which the flash kernel does not take,
     so "auto" resolves to the plain attention) and 64 routed experts top-6
-    with 2 shared, routed without drops; no kernel of the port is on its
-    path, and the flash and scan counts must not move over the whole run.
+    with 2 shared, routed without drops; under "auto" no kernel of the
+    port is on its path, and the flash, scan and MLA counts must not move
+    over the whole run.
     Then its MLA decode step against the full-sequence path
-    (``mla_decode_check``) and its ``graphs_phase``.  Then the reduced
-    llama4-scout (``moe_gqa_phase``).  Returns the llama4 run's launch
-    counts (the flash kernel's, one a layer a prefill)."""
+    (``mla_decode_check``) and its ``graphs_phase``; then its prompts
+    through "chunked", as the long-prompt cell runs them
+    (``mla_chunked_serving``: the MLA kernel once a layer).  Then the
+    reduced llama4-scout (``moe_gqa_phase``).  Returns the llama4 run's
+    launch counts (the flash kernel's, one a layer a prefill) with the
+    "chunked" run's MLA launches."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.models import get
@@ -1197,7 +1334,8 @@ def moe_serving_phase(check, report):
     served = serve_state_model(
         check, report, cfg, MOE_STATIC, key="moe_serving",
         n_params=16_210_324_992,
-        per_prefill={"flash_attention": 0, "ssm_scan": 0},
+        per_prefill={"flash_attention": 0, "ssm_scan": 0,
+                     "mla_attention": 0},
         shape=(f"{cfg.n_layers} layers, d {cfg.d_model}; MLA: {cfg.n_heads} "
                f"heads, kv_lora {m.kv_lora_rank}, nope {m.qk_nope_head_dim}, "
                f"rope {m.qk_rope_head_dim}, v {m.v_head_dim}; MoE: "
@@ -1209,16 +1347,67 @@ def moe_serving_phase(check, report):
     torch.cuda.synchronize()
     # counted from the serving run's reset through the graphs phase
     moved = {k: build.launch_counts()[k]
-             for k in ("flash_attention", "ssm_scan")}
-    check(moved == {"flash_attention": 0, "ssm_scan": 0},
+             for k in ("flash_attention", "ssm_scan", "mla_attention")}
+    check(moved == {"flash_attention": 0, "ssm_scan": 0, "mla_attention": 0},
           f"{cfg.name} launched model kernels: {moved} ('auto' must "
           f"resolve to the plain attention for MLA)")
     report["moe_serving"]["kernel_launches_whole_phase"] = moved
     print(f"  {cfg.name}: model-kernel launches over the whole phase "
           f"{moved}", flush=True)
+    chunked = mla_chunked_serving(check, report, served)
     del served
     torch.cuda.empty_cache()
-    return moe_gqa_phase(check, report)
+    launches = moe_gqa_phase(check, report)
+    check(launches["mla_attention"] == 0,
+          f"{MOE_GQA_ARCH} launched the MLA kernel "
+          f"{launches['mla_attention']} times")
+    launches["mla_attention"] = chunked["mla_attention"]
+    return launches
+
+
+def mla_chunked_serving(check, report, served):
+    """deepseek's prompts through ``ServeEngine.generate`` as the
+    long-prompt cell calls it: attn_impl "chunked" with chunk 512, routing
+    without drops, greedy.  Counted from 0 over the call: its one prefill
+    launches the MLA kernel once a layer, and nothing else of the port's
+    model kernels runs (the decode step reads the latent cache in plain
+    torch).  Prints how many tokens match the "auto" run's greedy tokens
+    (bf16 roundings of another attention order may flip some; not a
+    gate).  Returns the call's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import CallConfig
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    cfg, st = served["cfg"], served["static"]
+    call = CallConfig(attn_impl="chunked", attn_chunk=512, moe_no_drop=True)
+    eng = ServeEngine(cfg, served["model"], ServeConfig(
+        batch=st["batch"], max_len=served["max_len"], temperature=0.0),
+        call, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    build.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(served["prompts"], st["new_tokens"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = build.launch_counts()
+    want = {"flash_attention": 0, "ssm_scan": 0, "decode_attention": 0,
+            "mla_attention": cfg.n_layers}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{cfg.name} through \"chunked\" launched {got}, "
+                       f"not {want} (the MLA kernel once a layer a prefill)")
+    check(out.shape == (st["batch"], st["new_tokens"])
+          and out.min() >= 0 and out.max() < cfg.vocab_size,
+          f"{cfg.name} \"chunked\" tokens of shape {out.shape}")
+    same = float(np.mean(out == served["outs"]["step"]))
+    report["moe_serving"]["chunked"] = {
+        "launches": got, "wall_s": wall, "tokens_as_auto": same}
+    print(f"  generate \"chunked\" (chunk 512): {wall:.3f} s wall; "
+          f"launches {got}; tokens as under \"auto\": {same:.3f}",
+          flush=True)
+    del eng
+    return launches
 
 
 def mla_decode_check(check, report, served):
@@ -1441,8 +1630,8 @@ def frontend_serving_phase(check, report):
     torch.cuda.synchronize()
     # counted from the serving run's reset through the graphs phase
     moved = {k: build.launch_counts()[k]
-             for k in ("flash_attention", "ssm_scan")}
-    check(moved == {"flash_attention": 0, "ssm_scan": 0},
+             for k in ("flash_attention", "ssm_scan", "mla_attention")}
+    check(moved == {"flash_attention": 0, "ssm_scan": 0, "mla_attention": 0},
           f"{cfg.name} launched model kernels: {moved} ('auto' must "
           f"resolve to the plain attention for a prefix mask)")
     report["vision_serving"]["kernel_launches_whole_phase"] = moved
@@ -4416,6 +4605,8 @@ def main() -> int:
     # -- 4-5. flash attention, the serving path, the serve tenant ---------
     flash_row = flash_phase(check, report, time_ms)
     torch.cuda.empty_cache()
+    mla_row = mla_phase(check, report, time_ms)
+    torch.cuda.empty_cache()
     decode_row = decode_phase(check, report, time_ms)
     torch.cuda.empty_cache()
     served = serving_phase(check, report)
@@ -4441,8 +4632,9 @@ def main() -> int:
     del hybrid_served
     torch.cuda.empty_cache()
 
-    # -- 9. the MoE family: deepseek-v2-lite (MLA, no kernel on its path),
-    #       then the reduced llama4 (GQA: the flash kernel) -----------------
+    # -- 9. the MoE family: deepseek-v2-lite (MLA: no kernel under "auto",
+    #       the MLA kernel under "chunked"), then the reduced llama4 (GQA:
+    #       the flash kernel) ------------------------------------------------
     moe_launches = moe_serving_phase(check, report)
     torch.cuda.empty_cache()
 
@@ -4481,6 +4673,7 @@ def main() -> int:
     launches["decode_attention"] = sum(
         counts["decode_attention"] for counts in (
             serve_launches, hybrid_launches, moe_launches, frontend_launches))
+    launches["mla_attention"] = moe_launches["mla_attention"]
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items())
           + "; of these, by graph replays: "
           + " ".join(f"{k}={v}" for k, v in replayed.items()))
@@ -4492,7 +4685,7 @@ def main() -> int:
               f"no graph replay launched the {name} kernel")
     line = []
     rows = dict(main_rows, flash_attention=flash_row, ssm_scan=scan_row,
-                decode_attention=decode_row)
+                decode_attention=decode_row, mla_attention=mla_row)
     for name in KERNEL_JOBS + MODEL_KERNELS:
         k = build.KERNELS[name]
         row = rows[name]

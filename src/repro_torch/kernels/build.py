@@ -31,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("axpy.cu", "matmul.cu", "atax.cu", "covariance.cu",
-           "flash_attention.cu", "ssm_scan.cu", "decode_attention.cu")
+           "flash_attention.cu", "ssm_scan.cu", "decode_attention.cu",
+           "mla_attention.cu")
 HEADERS = ("common.cuh", "hopper.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -61,6 +62,7 @@ SIGNATURES = {
     "repro_flash_qk_tile": (_P, _P, _P, _I, _P),
     "repro_decode_attention": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _I, _D, _P),
+    "repro_mla_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _D, _P),
 }
 
 
@@ -277,6 +279,13 @@ def launch(kernel: str, name: str, t: torch.Tensor, *args) -> None:
     check_rc(rc, kernel)
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it starts off a 16-byte boundary (TMA
+    reads from 16-byte aligned addresses only; a view may start
+    anywhere)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     """The accumulator type of the kernels (and of their plain versions)."""
     return torch.float64 if dtype == torch.float64 else torch.float32
@@ -314,6 +323,9 @@ KERNELS: Dict[str, Kernel] = {
     "decode_attention": Kernel("decode_attention",
                                _src("decode_attention.cu"),
                                "src/repro/models/attention.py:220"),
+    # no Pallas twin: the reference's MLA attention is XLA's chunked loop
+    "mla_attention": Kernel("mla_attention", _src("mla_attention.cu"),
+                            "src/repro/models/attention.py:59"),
 }
 
 

@@ -49,18 +49,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    # TMA reads from 16-byte aligned addresses only; a view may start
-    # anywhere
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    q, k, v = (_b.aligned(t) for t in (q, k, v))
     _b.launch("flash_attention", "repro_flash_attention", q, code,
               q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, hq,
               hkv, sq, skv, d, int(bool(causal)))
     KERNEL.launches += 1
     return o
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def qk_tile(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -74,7 +68,7 @@ def qk_tile(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
                          f"{HEAD_DIMS}; got {tuple(q.shape)}, "
                          f"{tuple(k.shape)} {q.dtype}")
     _b.check_inputs("qk_tile", q, k)
-    q, k = _aligned(q), _aligned(k)
+    q, k = _b.aligned(q), _b.aligned(k)
     s = torch.empty((64, 64), dtype=torch.float32, device=q.device)
     _b.launch("flash_attention qk_tile", "repro_flash_qk_tile", q,
               q.data_ptr(), k.data_ptr(), s.data_ptr(), q.shape[1])

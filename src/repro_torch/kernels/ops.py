@@ -21,6 +21,7 @@ from repro_torch.kernels.covariance import covariance as _cov_kernel
 from repro_torch.kernels.flash_attention import (
     flash_attention as _flash_kernel,
 )
+from repro_torch.kernels import mla_attention as _mla
 from repro_torch.kernels.matmul import matmul as _matmul_kernel
 from repro_torch.kernels.ssm_scan import ssm_scan as _ssm_kernel
 
@@ -79,6 +80,18 @@ def attention(q, k, v, *, causal: bool = True,
         return _flash_kernel(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal)
     return ref.attention(q, k, v, causal=causal)
+
+
+def mla_attention(q, k, v, *, scale=None, impl: str = "auto"
+                  ) -> torch.Tensor:
+    """MLA's causal attention: q and k of head dim 192, v of 128, one head
+    count, bf16 for the kernel; the mask aligned bottom-right, scores times
+    ``scale`` (1/sqrt(192) when None) (``kernels.mla_attention``)."""
+    if _resolve(impl, q) == "kernel":
+        return _mla.mla_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), scale=scale)
+    return ref.masked_attention(
+        q, k, v, ref.causal_mask(q.shape[2], k.shape[2], q.device), scale)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, scale: float,

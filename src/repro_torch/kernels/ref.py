@@ -64,6 +64,30 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)).to(q.dtype)
 
 
+def causal_mask(sq: int, skv: int, device=None) -> torch.Tensor:
+    """(Sq, Skv) bool, True where a row sees a column: the causal mask
+    aligned bottom-right (``col <= row + Skv - Sq``)."""
+    return torch.ones(sq, skv, dtype=torch.bool, device=device).tril(
+        diagonal=skv - sq)
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     allowed: torch.Tensor, scale: float | None = None
+                     ) -> torch.Tensor:
+    """softmax(scale · q kᵀ, -1e30 where ``allowed`` is False) · v in f32,
+    in q's dtype; ``scale`` is 1/sqrt(q's head dim) when None.  q (B, H,
+    Sq, Dq), k (B, H, Skv, Dq), v (B, H, Skv, Dv), ``allowed`` (Sq, Skv).
+    The model's plain attention and the MLA kernel's plain version."""
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32))
+    s = s / (d ** 0.5) if scale is None else s * scale
+    s = s.masked_fill(~allowed[None, None], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)
+
+
 def ssm_scan(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
              h0: torch.Tensor | None = None, return_state: bool = False):
     """Sequential SSM scan in f32 — the scan kernel's plain version and the

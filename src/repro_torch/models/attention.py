@@ -4,10 +4,17 @@ Five implementations behind one switch (``impl``):
   * "plain"   — dense masked attention written here (the twin of "xla");
   * "chunked" — online softmax over KV chunks in plain torch: O(S·chunk)
                 memory; with ``remat_chunk`` each chunk is recomputed in
-                the backward pass;
+                the backward pass.  On the card, a call of MLA's dims (q/k
+                192, v 128) in bf16 with no prefix mask and no autograd
+                recording runs the same online softmax as one launch of
+                the hand-written kernel ``kernels/csrc/mla_attention.cu``
+                (:func:`repro_torch.kernels.mla_attention.takes`); the
+                loop stays on the CPU, in f32, under autograd and at other
+                head dims;
   * "kernel"  — the hand-written CUDA flash-attention kernel through
-                ``kernels.ops.attention`` (the twin of "pallas"); CUDA
-                tensors only, and it raises for a prefix-LM mask;
+                ``kernels.ops.attention`` (the twin of "pallas"), or for
+                the calls the MLA kernel takes, that kernel; CUDA tensors
+                only, and it raises for a prefix-LM mask;
   * "stub"    — the reference's flash-substitution measurement stub: the
                 mean of V over the sequence, plus 1e-6 of q's mean over
                 its head dim, at every query row (attention's shapes at
@@ -39,7 +46,9 @@ from typing import Mapping, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.kernels import mla_attention as kmla
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.config import ModelConfig
 from repro_torch.core import trace
 from repro_torch.models.layers import apply_rope, rms_norm, yarn_mscale
@@ -107,18 +116,6 @@ def _repeat_kv(k: torch.Tensor, v: torch.Tensor,
         return k, v
     return (k.repeat_interleave(hq // hkv, dim=1),
             v.repeat_interleave(hq // hkv, dim=1))
-
-
-def _plain_attention(q, k, v, mask, scale: Optional[float] = None
-                     ) -> torch.Tensor:
-    d = q.shape[-1]
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
-                     k.to(torch.float32))
-    s = s / (d ** 0.5) if scale is None else s * scale
-    s = s.masked_fill(~mask[None, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p,
-                        v.to(torch.float32)).to(q.dtype)
 
 
 def _stub_attention(q, v) -> torch.Tensor:
@@ -208,8 +205,12 @@ def multihead_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """``scale``, the softmax's, is 1/sqrt(d) when None (every path); the
-    plain and chunked paths take another (MLA under YaRN)."""
+    plain and chunked paths and the MLA kernel take another (MLA under
+    YaRN).  "chunked" and "kernel" run the MLA kernel for the calls it
+    takes (:func:`repro_torch.kernels.mla_attention.takes`)."""
     impl = resolve_impl(impl, q, k, v, prefix_len)
+    if impl in ("chunked", "kernel") and kmla.takes(q, k, v, prefix_len):
+        return kops.mla_attention(q, k, v, scale=scale, impl="kernel")
     if impl == "kernel":
         if prefix_len:
             raise NotImplementedError("prefix-LM uses plain/chunked")
@@ -225,7 +226,7 @@ def multihead_attention(
         return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk,
                                   remat_chunk=remat_chunk, scale=scale)
     mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)
-    return _plain_attention(q, k, v, mask, scale)
+    return kref.masked_attention(q, k, v, mask, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -368,9 +369,11 @@ def mla_attention(x, p: Params, cfg: ModelConfig, positions, *,
                   ) -> torch.Tensor:
     """Full-sequence MLA attention (``c``/``k_rope`` may be precomputed, as
     prefill does).  q and k have head dim nope + rope and v ``v_head_dim``,
-    so "auto" resolves to "plain" (the flash kernel takes one head dim).
-    Under YaRN the softmax scale is :func:`mla_scale`'s.  The attention
-    itself is the span ``mla.attend`` (device time on the card)."""
+    so "auto" resolves to "plain" (the flash kernel takes one head dim);
+    "chunked" runs the MLA kernel where it takes the call (bf16 on the
+    card at 192/128, no autograd).  Under YaRN the softmax scale is
+    :func:`mla_scale`'s.  The attention itself is the span ``mla.attend``
+    (device time on the card)."""
     m = cfg.mla
     dt = x.dtype
     b = x.shape[0]

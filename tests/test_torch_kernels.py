@@ -157,7 +157,8 @@ def test_impl_switch_on_cpu():
 
 #: kernels with no Pallas twin, each with the reference function whose
 #: plain work it takes over
-NO_PALLAS_TWIN = {"decode_attention": "gqa_decode_ragged"}
+NO_PALLAS_TWIN = {"decode_attention": "gqa_decode_ragged",
+                  "mla_attention": "_chunked_attention"}
 
 
 def test_kernel_table_names_real_files():
