@@ -68,6 +68,10 @@ def _host(leaf) -> np.ndarray:
 
 
 def _device(device) -> torch.device:
+    """The card when None (raises without one); otherwise the device as
+    given, unchecked, so that an explicit ``"cuda"`` fails only where a
+    tensor goes there.  ``core.offload.resolve_device`` raises for that
+    one too, hence a function of its own."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError("restore: no CUDA device; pass device='cpu' "

@@ -147,17 +147,21 @@ def _is_resident(operands: Any, legacy_surface: str) -> bool:
 STAGING_MODES = bc.STAGING_MODES
 
 
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """The runtime's device: the card unless the caller asks for the CPU.
+def resolve_device(device: Union[None, str, torch.device],
+                   who: str = "the offload runtime",
+                   on_cpu: str = "run the plain versions") -> torch.device:
+    """The device of ``who`` (the runtime, the serve engine, the train
+    step): the card unless the caller asks for the CPU.
 
     Raises when CUDA is asked for (explicitly or by default) and absent —
-    the runtime never quietly carries on on the CPU.
+    nothing quietly carries on on the CPU; the message tells the caller
+    to pass ``device='cpu'`` to ``on_cpu`` on the CPU.
     """
     dev = torch.device("cuda") if device is None else torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "the offload runtime runs on a CUDA device and none is present; "
-            "pass device='cpu' to run the plain versions on the CPU")
+            f"{who} runs on a CUDA device and none is present; "
+            f"pass device='cpu' to {on_cpu} on the CPU")
     return dev
 
 

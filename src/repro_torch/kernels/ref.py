@@ -56,19 +56,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) / (d ** 0.5)
     if causal:
-        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(
-            diagonal=skv - sq)
-        s = s.masked_fill(~mask, -1e30)
+        s = s.masked_fill(~causal_mask(sq, skv, q.device), -1e30)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.to(torch.float32)).to(q.dtype)
 
 
-def causal_mask(sq: int, skv: int, device=None) -> torch.Tensor:
-    """(Sq, Skv) bool, True where a row sees a column: the causal mask
-    aligned bottom-right (``col <= row + Skv - Sq``)."""
-    return torch.ones(sq, skv, dtype=torch.bool, device=device).tril(
-        diagonal=skv - sq)
+def causal_mask(sq: int, skv: int, device=None, *, prefix_len: int = 0,
+                start: int = 0, width: int | None = None) -> torch.Tensor:
+    """(Sq, width) bool, True where a row sees a column: the causal mask
+    aligned bottom-right (``col <= row + Skv - Sq``), every column below
+    ``prefix_len`` seen as well (PaliGemma's prefix-LM), over the columns
+    ``start .. start + width`` (all Skv when ``width`` is None; a KV chunk
+    of the chunked attention otherwise)."""
+    rows = torch.arange(sq, device=device)[:, None] + (skv - sq)
+    end = skv if width is None else start + width
+    cols = torch.arange(start, end, device=device)[None, :]
+    allowed = cols <= rows
+    if prefix_len > 0:
+        allowed = allowed | (cols < prefix_len)
+    return allowed
 
 
 def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -40,12 +40,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.fabric import FabricScheduler
+from repro_torch.core.offload import resolve_device
 from repro_torch.core.policy import Staging
 from repro_torch.data import DataConfig, SyntheticStream
 from repro_torch.models import get, init_params, reduced
 from repro_torch.models.model import prefix_tokens
 from repro_torch.serve import ServeConfig, ServeEngine, ServeTenant
-from repro_torch.serve.engine import resolve_device
 
 
 def continuous_trace(n: int, lo: int, hi: int, new_tokens: int,
@@ -120,7 +120,7 @@ def main(argv=None) -> None:
                          "trace (continuous mode)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "the serve engine", "serve")
     cfg = get(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -153,9 +153,10 @@ def main(argv=None) -> None:
         outs = engine.generate_many(reqs, arrival_steps=arrivals.tolist())
         dt = time.time() - t0
         total = sum(len(o) for o in outs)
-        print(f"[serve] continuous on {device}: {args.requests} requests, "
-              f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s, batch "
-              f"{args.batch}, {engine.stats['prefill_inserts']} inserts)")
+        print(f"[serve] continuous on {engine.device}: {args.requests} "
+              f"requests, {total} tokens in {dt:.2f}s ({total / dt:.1f} "
+              f"tok/s, batch {args.batch}, "
+              f"{engine.stats['prefill_inserts']} inserts)")
         for r in range(min(2, args.requests)):
             print(f"  req {r}: prompt_len={lens[r]} arrival={arrivals[r]} "
                   f"-> {outs[r][:12].tolist()}")
@@ -167,8 +168,8 @@ def main(argv=None) -> None:
     out = engine.generate(prompts, args.new_tokens, extra)
     dt = time.time() - t0
     total = args.batch * args.new_tokens
-    print(f"[serve] generated {total} tokens on {device} in {dt:.2f}s "
-          f"({total / dt:.1f} tok/s, batch {args.batch})")
+    print(f"[serve] generated {total} tokens on {engine.device} in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s, batch {args.batch})")
     for b in range(min(2, args.batch)):
         print(f"  slot {b}: prompt={prompts[b][:8].tolist()}... "
               f"-> {out[b][:16].tolist()}")

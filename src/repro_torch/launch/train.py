@@ -33,13 +33,13 @@ import torch
 from repro_torch import convert
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.core.completion import CompletionUnit
+from repro_torch.core.offload import resolve_device
 from repro_torch.data import DataConfig, SyntheticStream, input_specs
 from repro_torch.ft.straggler import StepWatchdog
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import get, init_params, reduced
 from repro_torch.optim import adamw_init
 from repro_torch.train import TrainConfig, build_train_step
-from repro_torch.train.step import resolve_device
 
 
 def _state(model, opt, cfg):
@@ -68,7 +68,7 @@ def main(argv=None) -> None:
                     help="the device to train on (cuda, cuda:N or cpu)")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device, "the train step", "train")
     cfg = get(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

@@ -97,18 +97,6 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _mask(sq: int, skv: int, prefix_len: int = 0,
-          device: torch.device | str | None = None) -> torch.Tensor:
-    """Causal mask, optionally bidirectional over the first `prefix_len`
-    positions (PaliGemma prefix-LM)."""
-    rows = torch.arange(sq, device=device)[:, None] + (skv - sq)
-    cols = torch.arange(skv, device=device)[None, :]
-    allowed = cols <= rows
-    if prefix_len > 0:
-        allowed = allowed | (cols < prefix_len)
-    return allowed
-
-
 def _repeat_kv(k: torch.Tensor, v: torch.Tensor,
                hq: int) -> Tuple[torch.Tensor, torch.Tensor]:
     hkv = k.shape[1]
@@ -137,11 +125,8 @@ def _chunk_step(m, l, acc, q32, kb, vb, start: int, skv: int,
     kb = kb.to(torch.float32)
     vb = vb.to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q32, kb)
-    rows = torch.arange(sq, device=q32.device)[:, None] + (skv - sq)
-    cols = start + torch.arange(kb.shape[2], device=q32.device)[None, :]
-    allowed = cols <= rows
-    if prefix_len > 0:
-        allowed = allowed | (cols < prefix_len)
+    allowed = kref.causal_mask(sq, skv, q32.device, prefix_len=prefix_len,
+                               start=start, width=kb.shape[2])
     s = s.masked_fill(~allowed[None, None], NEG_INF)
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
     alpha = torch.exp(m - m_new)
@@ -225,7 +210,8 @@ def multihead_attention(
     if impl == "chunked":
         return _chunked_attention(q, k, v, prefix_len=prefix_len, chunk=chunk,
                                   remat_chunk=remat_chunk, scale=scale)
-    mask = _mask(q.shape[2], k.shape[2], prefix_len, q.device)
+    mask = kref.causal_mask(q.shape[2], k.shape[2], q.device,
+                            prefix_len=prefix_len)
     return kref.masked_attention(q, k, v, mask, scale)
 
 

@@ -91,6 +91,7 @@ from repro_torch.core.completion import CompletionUnit
 from repro_torch.core.fabric import (
     ClusterLease, FabricScheduler, LeaseUnavailable, Tenant,
 )
+from repro_torch.core.offload import resolve_device
 from repro_torch.core.policy import Staging, TenantKind, coerce_enum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
@@ -113,20 +114,6 @@ HOST_NS = ("call_host_ns", "insert_host_ns", "step_host_ns",
 #: host nanoseconds above, and ``generate``'s prefilled positions and
 #: host nanoseconds
 PORT_COUNTERS = HOST_NS + ("prefill_tokens", "generate_host_ns")
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """The engine's device: the card unless the caller asks for the CPU.
-    Raises when CUDA is asked for (explicitly or by default) and absent."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "the serve engine runs on a CUDA device and none is present; "
-                "pass device='cpu' to serve on the CPU")
-        if dev.index is None:        # as tensors report it: cuda:<current>
-            dev = torch.device("cuda", torch.cuda.current_device())
-    return dev
 
 
 def _sampler(temperature: float):
@@ -269,7 +256,9 @@ class ServeEngine:
                  device: Union[None, str, torch.device] = None,
                  cluster_ids: Optional[Sequence[int]] = None):
         self.cfg, self.scfg, self.call = cfg, scfg, call
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, "the serve engine", "serve")
+        if self.device == torch.device("cuda"):   # as tensors report it
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._card = self.device.type == "cuda"
         self.params = params
         # the engine's fabric window (global cluster ids): what its

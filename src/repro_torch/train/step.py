@@ -24,6 +24,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.core import trace
+from repro_torch.core.offload import resolve_device
 from repro_torch.dist.sharding import (
     LogicalMesh, batch_specs, param_specs,
 )
@@ -136,17 +137,6 @@ def train_step_fn(cfg: ModelConfig, tcfg: TrainConfig):
     return step_fn
 
 
-def resolve_device(device) -> torch.device:
-    """The card unless the caller asks for the CPU; raises when CUDA is
-    asked for (explicitly or by default) and absent."""
-    dev = torch.device("cuda") if device is None else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the train step runs on a CUDA device and none "
-                           "is present; pass device='cpu' to train on the "
-                           "CPU")
-    return dev
-
-
 def build_train_step(
     cfg: ModelConfig,
     tcfg: TrainConfig,
@@ -166,7 +156,7 @@ def build_train_step(
     reference's stacked tree (``convert.reference_shapes``), the moments'
     the same, the counter's and every unsharded leaf's ``()``.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device, "the train step", "train")
     mesh = mesh or LogicalMesh(("data", "model"), (1, 1))
     pspecs = param_specs(convert.reference_shapes(cfg), mesh)
     ospecs = {"mu": pspecs, "nu": pspecs, "count": ()}

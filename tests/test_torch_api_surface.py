@@ -13,6 +13,8 @@ reference's parameters.  ``repro_torch.core`` exports every name
 ``repro.core`` does.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import enum
 import inspect
 import subprocess

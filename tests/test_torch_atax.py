@@ -23,6 +23,8 @@ it, so ``python -m pytest -m cuda tests/test_torch_atax.py`` runs them on a
 machine with the card and no JAX.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import zlib
 
 import numpy as np

@@ -12,12 +12,14 @@ kernel tests (``tests/test_kernels.py:78-113``).
 
 Sq < Skv is held to ``ref.attention`` only: the TPU kernel aligns its
 causal mask top-left (``flash_attention.py:52, 67-71``) while
-``ref.attention``, the model's ``_mask`` and the port's kernel align it
-bottom-right, and the two agree only for Sq == Skv.  So is causal
-Sq > Skv, whose first Sq - Skv rows see no column: ``ref.attention`` gives
-them the mean of V (a softmax over a row filled with -1e30), held at
-``1e-5``.
+``ref.attention``, the model's mask (``ref.causal_mask``) and the
+port's kernel align it bottom-right, and the two agree only for Sq ==
+Skv.  So is causal Sq > Skv, whose first Sq - Skv rows see no column:
+``ref.attention`` gives them the mean of V (a softmax over a row filled
+with -1e30), held at ``1e-5``.
 """
+
+import torch_threads  # noqa: F401  (first: one intra-op thread)
 
 import dataclasses
 
@@ -277,6 +279,39 @@ def test_fully_visible_rows_match_a_dense_softmax():
     p /= p.sum(-1, keepdims=True)
     np.testing.assert_allclose(got, np.einsum("bhqk,bhkd->bhqd", p, vv),
                                rtol=1e-5, atol=1e-5)
+
+
+#: (Sq, Skv, prefix_len, chunk): Sq <= Skv, Sq > Skv, a prefix, and KV
+#: chunks whose last one is short
+MASKS = [(37, 100, 0, 100), (64, 64, 0, 64), (1, 45, 0, 45), (40, 9, 0, 9),
+         (70, 33, 0, 33), (20, 20, 8, 20), (12, 30, 8, 30), (20, 50, 0, 16),
+         (20, 50, 8, 16), (50, 20, 8, 7)]
+
+
+@pytest.mark.parametrize("sq, skv, prefix, chunk", MASKS)
+def test_causal_mask_equals_the_forms_it_replaced(sq, skv, prefix, chunk):
+    """``ref.causal_mask`` against the three masks it replaced, written
+    out here as they were: the ``tril`` (``ref.causal_mask`` and
+    ``ref.attention``, no prefix), the model's plain mask, and the chunked
+    attention's mask of one KV chunk from column ``start`` on."""
+    full = t_ref.causal_mask(sq, skv, prefix_len=prefix)
+    if prefix == 0:
+        tril = torch.ones(sq, skv, dtype=torch.bool).tril(diagonal=skv - sq)
+        assert torch.equal(full, tril)
+    rows = torch.arange(sq)[:, None] + (skv - sq)
+    cols = torch.arange(skv)[None, :]
+    plain = (cols <= rows) | (cols < prefix) if prefix > 0 else cols <= rows
+    assert torch.equal(full, plain)
+    for start in range(0, skv, chunk):
+        width = min(chunk, skv - start)
+        cols = start + torch.arange(width)[None, :]
+        allowed = cols <= rows
+        if prefix > 0:
+            allowed = allowed | (cols < prefix)
+        got = t_ref.causal_mask(sq, skv, prefix_len=prefix, start=start,
+                                width=width)
+        assert torch.equal(got, allowed)
+        assert torch.equal(got, full[:, start:start + width])
 
 
 # -- on the card ------------------------------------------------------------------

@@ -17,6 +17,8 @@ rest mirrors ``tests/test_checkpoint.py`` and ``tests/test_elastic.py``,
 and holds ``convert``'s round trip of parameters and AdamW state.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import os

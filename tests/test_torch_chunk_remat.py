@@ -28,6 +28,8 @@ O(S) carries and the knob has a gap to show; f32 compute.
   ``tests/test_torch_dryrun.py``'s parity subprocess.)
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

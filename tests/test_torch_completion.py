@@ -2,6 +2,8 @@
 tests/test_completion.py) and the two device-side synchronizations over a
 logical cluster's arrival vector, on the CPU."""
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import pytest
 import torch
 from _hypothesis_compat import given, settings, st

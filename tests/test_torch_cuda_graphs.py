@@ -23,6 +23,8 @@ programs as CUDA graphs.  What a capture needs can be held here:
 The ``cuda`` tests capture for real and skip without a card.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

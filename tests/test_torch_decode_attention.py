@@ -17,6 +17,8 @@ the card as they are::
     python -m pytest -q -m cuda tests/test_torch_decode_attention.py
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import pytest
 import torch
 

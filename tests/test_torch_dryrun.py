@@ -24,6 +24,8 @@ and ``tests/test_hlo_cost.py``, on the CPU (``meta`` tensors).
   subprocess, with and without the knob, against the same bar.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 
 import pytest

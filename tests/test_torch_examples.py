@@ -22,6 +22,8 @@ reference's ``offload_model_validation``, ``quickstart`` and
   the tree staging's bytes, the failure and the resume, a falling loss).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import ast
 import importlib.util
 import json

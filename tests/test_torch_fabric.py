@@ -16,6 +16,8 @@ lease failover (``tests/test_faults.py``) run the reference once, in one
 and ``FabricHealth`` exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 
 import numpy as np

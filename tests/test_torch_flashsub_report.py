@@ -6,6 +6,8 @@ analytic and do not depend on the card), ``roofline_table`` and
 ``summarize`` give the same text from both packages on the same records,
 and ``substitute`` adds the terms under the H100's constants."""
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import os

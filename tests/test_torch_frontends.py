@@ -30,6 +30,8 @@ difference from the reference: its CLI sizes the cache without the
 patches, so it cannot serve paligemma-3b; the port's can.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import os

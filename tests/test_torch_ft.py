@@ -11,6 +11,8 @@ and ``PlanStats`` are held equal exactly, results at ``rtol=atol=1e-9``
 (the reference's bar) and bit-equal between a backup and a primary run.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

@@ -14,6 +14,8 @@ and random DAGs — which the port replays in-process on
 in-process against the reference's, exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 import random
 

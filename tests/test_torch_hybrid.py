@@ -27,6 +27,8 @@ each chunk with an associative scan, the port sequentially, so the two
 differ by f32 rounding.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

@@ -9,6 +9,8 @@ tests at the end need a CUDA card and skip without one; ``chip_smoke.py``
 runs the same comparison on the H100.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import numpy as np
 import pytest
 import torch

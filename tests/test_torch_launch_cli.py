@@ -14,6 +14,8 @@
   print them to 4 decimals only.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 import os
 import re
@@ -55,6 +57,7 @@ print("LOSSES" + json.dumps(losses))
 def _run_port(*args: str, timeout: int = 600) -> str:
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"      # as tests/torch_threads.py sets it here
     proc = subprocess.run(
         [sys.executable, "-u", "-m", "repro_torch.launch.train",
          "--device", "cpu", *args],

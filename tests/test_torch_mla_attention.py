@@ -15,6 +15,8 @@ Run the card cases on a machine with the card:
 tests/test_torch_mla_attention.py``.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import os

@@ -18,6 +18,8 @@ their fused kernels, so logits of order 1 differ by a few bf16 ulps
 (1 ulp = 2⁻⁸ relative).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

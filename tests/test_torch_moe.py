@@ -32,6 +32,8 @@ the reference's), in bf16 at 5e-2; the models in float32 at 1e-4
 exactly.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

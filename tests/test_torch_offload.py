@@ -14,6 +14,8 @@ exactly.  The tests after those run the port alone, at Occamy's 32
 clusters.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import warnings

@@ -17,6 +17,8 @@ reference's graph names) and holds JSON, SARIF, the regret table and the
 gate's report equal.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 import os
 import re

@@ -15,6 +15,8 @@ at 16 and 32 the reference raises and the port recovers, with results
 bit-identical to a fault-free run.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 
 import numpy as np

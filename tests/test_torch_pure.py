@@ -9,6 +9,8 @@ port's sources: no module imports JAX or ``repro``, and every entry point
 that defaults to the card raises without one.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import ast
 import dataclasses
 import os

@@ -8,6 +8,8 @@ orders, retire orders, ready sets and in-flight peaks are held equal
 exactly (mirrors ``tests/test_scoreboard.py``).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import collections
 import random
 

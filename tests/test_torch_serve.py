@@ -17,6 +17,8 @@ Temperature sampling is held within the port only: the port draws from a
 ``torch.Generator``, which cannot reproduce ``jax.random``.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import warnings
@@ -273,8 +275,9 @@ def test_synthetic_stream_is_bit_identical_to_reference():
 def test_engine_defaults_to_the_card():
     cfg = _cfg("smollm-360m")
     model = TM.Transformer(cfg, device="meta")
-    if torch.cuda.is_available():
-        assert ServeEngine(cfg, model, ServeConfig()).device.type == "cuda"
+    if torch.cuda.is_available():     # as tensors report it: cuda:<current>
+        assert ServeEngine(cfg, model, ServeConfig()).device == torch.device(
+            "cuda", torch.cuda.current_device())
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             ServeEngine(cfg, model, ServeConfig())
@@ -357,7 +360,7 @@ def test_serve_cli_serves_falcon_mamba_on_cpu(capsys):
 
 def test_serve_cli_defaults_to_the_card():
     if torch.cuda.is_available():
-        from repro_torch.serve.engine import resolve_device
+        from repro_torch.core.offload import resolve_device
         assert resolve_device("cuda").type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -16,6 +16,8 @@ copy of the weights; ``stats`` counts the link bytes the reference's
 per-device replicas move.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

@@ -15,6 +15,8 @@ counts and warning counts are held equal exactly (mirrors
 ``tests/test_session.py``).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 import warnings

@@ -20,6 +20,8 @@ both packages round activations to bf16 after every product, in different
 places of their fused kernels (``tests/test_torch_models.py``).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

@@ -12,6 +12,8 @@ results, as the reference's does; the ``cuda`` case drives the copy
 stream on the card.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import json
 import warnings
 

@@ -20,6 +20,8 @@ it, so on a machine with the card and no JAX ``python -m pytest -m cuda
 tests/test_torch_syrk_axpy.py`` runs the ``cuda`` cases as they are.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import zlib
 
 import numpy as np

@@ -16,6 +16,8 @@ since bf16 × bf16 products are exact in f32 and only the order of the
 f32 sums differs.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import zlib
 
 import numpy as np

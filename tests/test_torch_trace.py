@@ -16,6 +16,8 @@ size.
   of a span's children.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import time
 import tracemalloc
 

@@ -24,6 +24,8 @@ value.  The rest mirrors ``tests/test_substrate.py`` and the train half of
 every kernel wrapper raises under autograd.
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import dataclasses
 import json
 

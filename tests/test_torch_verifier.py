@@ -13,6 +13,8 @@ The session gate runs both packages' sessions (mirrors
 ``tests/test_analysis.py``).
 """
 
+import torch_threads  # noqa: F401  (first: one intra-op thread)
+
 import numpy as np
 import pytest
 import torch
