@@ -120,8 +120,9 @@ no JAX and nothing of the reference package.
    with 16 heads, kv_lora 512, nope 128, rope 64, v 128; 64 routed
    experts top-6 of 1408 and 2 shared; 16,210,324,992 float32 weights
    from a seeded generator on the card, bf16 compute, the earlier models
-   released and the free memory printed first; ``cast_params_once`` stays
-   off, since its bf16 copy would add 32.4 GB to 64.84).  The same prompts
+   released and the free memory printed first; the engine narrows the
+   weights each use casts to bf16 once, in their own storage, when it
+   adopts them, so the card holds no second copy).  The same prompts
    and modes as falcon-mamba, routed without drops; ``generate_many``
    raises (MLA), as the reference's does; no flash or scan launch in the
    whole run ("auto" resolves to the plain attention for MLA's 192/128
@@ -922,6 +923,34 @@ def device_busy(fn, reps):
             "top": [(k, us / reps, c // reps) for us, k, c in rows[:TOP_OPS]]}
 
 
+def seed_model(cfg):
+    """``cfg``'s weights as every serving phase draws them: float32 from
+    seed 0 on the card.  An engine narrows the model it adopts to bf16 in
+    place; a check in float32 compute draws the weights again here, once
+    the caller has let go of the narrowed model, so the card never holds
+    two (deepseek's 64.84 GB fit once)."""
+    import gc
+
+    import torch
+    from repro_torch.models import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    return init_params(cfg, generator=torch.Generator(device=dev)
+                       .manual_seed(0), device=dev)
+
+
+def print_narrowed(stats):
+    """The float32 bytes the engines of a phase narrowed when they adopted
+    its model (``stats`` by engine: the first narrows, the others find
+    nothing left), printed and returned."""
+    narrowed = {k: v["narrowed_bytes"] for k, v in stats.items()}
+    print(f"  narrowed on adoption: {sum(narrowed.values())} B of float32 "
+          f"weights to bf16 ({narrowed})", flush=True)
+    return sum(narrowed.values())
+
+
 def serving_phase(check, report):
     """Yi-9B at its published width through ``ServeEngine`` on the card.
     Returns what the tenant phase reuses: the launch counts of the serving
@@ -934,6 +963,7 @@ def serving_phase(check, report):
     from repro_torch.kernels import build
     from repro_torch.launch.serve import continuous_trace
     from repro_torch.models import CallConfig, get, init_params, prefill
+    from repro_torch.models.model import narrow_serving_weights
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.engine import build_sampling_step
 
@@ -1017,6 +1047,7 @@ def serving_phase(check, report):
           and stats["continuous"]["prefill_inserts"] == mn["requests"],
           f"continuous stats {stats['continuous']}")
     total = sum(len(o) for o in many)
+    narrowed = print_narrowed(stats)
     for mode in outs:
         print(f"  generate {mode:5s}: batch {st['batch']} x "
               f"{st['prompt_len']} prompt tokens, {st['new_tokens']} new: "
@@ -1028,6 +1059,10 @@ def serving_phase(check, report):
           f"{stats['continuous']}", flush=True)
 
     # -- prefill with the kernel against the plain attention -------------
+    # on the seed's float32 weights, drawn again where the engines
+    # narrowed them; narrowed again after, as served
+    del eng, model
+    model = seed_model(cfg)
     toks = torch.as_tensor(prompts).to(dev)
     calls = {impl: CallConfig(attn_impl=impl, attn_chunk=64)
              for impl in ("kernel", "plain", "chunked")}
@@ -1063,6 +1098,7 @@ def serving_phase(check, report):
               f"f32 summation order) {row['chunked']['max_abs_err']:.4g}, "
               f"{row['chunked']['rel_l2']:.4g}; bar {tol}", flush=True)
         del lg, lp, d
+    narrow_serving_weights(model, cfg)
 
     def prefill_s(impl):
         torch.cuda.synchronize()
@@ -1118,7 +1154,8 @@ def serving_phase(check, report):
                           for k, us, c in b["top"]), flush=True)
     report["serving"] = {
         "arch": cfg.name, "n_params": n_params, "param_bytes": param_bytes,
-        "init_s": init_s, "static": SERVE_STATIC, "continuous": SERVE_MANY,
+        "narrowed_bytes": narrowed, "init_s": init_s,
+        "static": SERVE_STATIC, "continuous": SERVE_MANY,
         "prompt_lens": lens.tolist(), "arrivals": arrivals.tolist(),
         "wall_s": wall, "continuous_s": many_s,
         "continuous_tok_per_s": total / many_s, "stats": stats,
@@ -1340,8 +1377,7 @@ def moe_serving_phase(check, report):
                f"heads, kv_lora {m.kv_lora_rank}, nope {m.qk_nope_head_dim}, "
                f"rope {m.qk_rope_head_dim}, v {m.v_head_dim}; MoE: "
                f"{e.n_experts} experts top-{e.top_k} of {e.d_ff_expert}, "
-               f"{e.n_shared} shared; vocab {cfg.vocab_size}; "
-               f"cast_params_once off"))
+               f"{e.n_shared} shared; vocab {cfg.vocab_size}"))
     mla_decode_check(check, report, served)
     graphs_phase(check, report, served)
     torch.cuda.synchronize()
@@ -1413,8 +1449,9 @@ def mla_chunked_serving(check, report, served):
 def mla_decode_check(check, report, served):
     """deepseek's decode step after a prefill of the prompts against the
     prefill's last-position logits over the prompts plus that token, at
-    full width and depth: in float32 compute (the same f32 weights, no
-    copy) within ``DECODE_TOL`` relative L2; the bf16 figure is
+    full width and depth: in float32 compute (the seed's f32 weights,
+    drawn again in place of the model the engines narrowed, and narrowed
+    again after) within ``DECODE_TOL`` relative L2; the bf16 figure is
     printed beside it, not a gate.  Both route without drops.  Beside
     each figure, the (layer, token) pairs whose top-k expert sets differ
     between the two paths (the indices ``moe.route`` returns, recorded
@@ -1422,6 +1459,7 @@ def mla_decode_check(check, report, served):
     import torch
     from repro_torch.models import CallConfig, decode_step, prefill
     from repro_torch.models import moe as moe_lib
+    from repro_torch.models.model import narrow_serving_weights
 
     route = moe_lib.route
 
@@ -1440,7 +1478,9 @@ def mla_decode_check(check, report, served):
             moe_lib.route = route
 
     dev = torch.device("cuda")
-    cfg, model = served["cfg"], served["model"]
+    cfg = served["cfg"]
+    served["model"] = None
+    model = served["model"] = seed_model(cfg)
     toks = torch.as_tensor(served["prompts"]).to(dev)
     nxt = torch.as_tensor(served["outs"]["step"][:, :1]).to(dev)
     s = toks.shape[1]
@@ -1473,6 +1513,7 @@ def mla_decode_check(check, report, served):
                          (i for i, f in enumerate(flips) if f), None)}
         del dec, full, d, dec_idx, full_idx
         torch.cuda.empty_cache()
+    narrow_serving_weights(model, cfg)
     r32 = rows["float32"]
     check(r32["finite"] and r32["rel_l2"] <= DECODE_TOL,
           f"{cfg.name}: the f32 MLA decode step is {r32} from the "
@@ -1505,6 +1546,7 @@ def moe_gqa_phase(check, report):
     from repro_torch.kernels import build
     from repro_torch.launch.serve import continuous_trace
     from repro_torch.models import get, init_params, reduced
+    from repro_torch.models.model import narrow_serving_weights
     from repro_torch.serve import ServeConfig, ServeEngine
 
     dev = torch.device("cuda")
@@ -1532,7 +1574,7 @@ def moe_gqa_phase(check, report):
         mn["requests"], mn["lo"], mn["hi"], mn["new_tokens"],
         mn["arrival_rate"], cfg.vocab_size, seed=0)
 
-    outs, wall = {}, {}
+    outs, wall, stats = {}, {}, {}
     torch.cuda.synchronize()
     build.reset_counts()
     for mode in ("step", "chunk", "host"):
@@ -1543,13 +1585,14 @@ def moe_gqa_phase(check, report):
         outs[mode] = eng.generate(prompts, st["new_tokens"])
         torch.cuda.synchronize()
         wall[mode] = time.perf_counter() - t0
+        stats[mode] = dict(eng.stats)
     eng = ServeEngine(cfg, model, ServeConfig(batch=mn["batch"],
                                               max_len=mn["max_len"]))
     t0 = time.perf_counter()
     many = eng.generate_many(reqs, arrival_steps=arrivals.tolist())
     torch.cuda.synchronize()
     many_s = time.perf_counter() - t0
-    many_stats = dict(eng.stats)
+    many_stats = stats["continuous"] = dict(eng.stats)
     launches = build.launch_counts()
     prefills = len(outs) + sum(1 for p, _ in reqs if p.size > 1)
 
@@ -1572,13 +1615,19 @@ def moe_gqa_phase(check, report):
           + f"; generate_many: {mn['requests']} requests in {many_s:.3f} s, "
           f"stats {many_stats}; flash launches {launches['flash_attention']}"
           f" = {cfg.n_layers} a prefill x {prefills}", flush=True)
+    narrowed = print_narrowed(stats)
     # the flash kernel at this prefill's GQA shapes against the plain
-    # attention, through the whole model
+    # attention, through the whole model, on the seed's float32 weights
+    # drawn again where the engines narrowed them; narrowed again after
+    del eng, model
+    model = seed_model(cfg)
     prefill_cmp = prefill_vs_plain(
         check, cfg, model, {"tokens": torch.as_tensor(prompts).to(dev)},
         max_len)
+    narrow_serving_weights(model, cfg)
     report["moe_gqa_serving"] = {
-        "arch": cfg.name, "wall_s": wall, "continuous_s": many_s,
+        "arch": cfg.name, "narrowed_bytes": narrowed, "wall_s": wall,
+        "continuous_s": many_s,
         "stats": many_stats, "launches": launches, "prefills": prefills,
         "prefill_logits": prefill_cmp,
         "tokens_row0": outs["step"][0].tolist()}
@@ -1586,7 +1635,7 @@ def moe_gqa_phase(check, report):
         "cfg": cfg, "model": model, "prompts": prompts, "outs": outs,
         "static": st, "max_len": max_len, "param_bytes": param_bytes,
         "many": (reqs, arrivals.tolist(), many)})
-    del model, eng
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -2664,13 +2713,17 @@ def prefix_decode_check(check, report, served):
     prompts and that token, at full width and depth: the prefix must
     carry through the cache (its P positions written, ``pos`` = P + S
     after the prefill and P + S + 1 after the step).  In float32 compute
-    (the same f32 weights, no copy) within ``DECODE_TOL`` relative
-    L2; the bf16 figure is printed beside it, not a gate."""
+    (the seed's f32 weights, drawn again in place of the model the
+    engines narrowed, and narrowed again after) within ``DECODE_TOL``
+    relative L2; the bf16 figure is printed beside it, not a gate."""
     import torch
     from repro_torch.models import decode_step, prefill
+    from repro_torch.models.model import narrow_serving_weights
 
     dev = torch.device("cuda")
-    cfg, model = served["cfg"], served["model"]
+    cfg = served["cfg"]
+    served["model"] = None
+    model = served["model"] = seed_model(cfg)
     toks = torch.as_tensor(served["prompts"]).to(dev)
     patches = torch.as_tensor(served["extra"]["patches"]).to(dev)
     nxt = torch.as_tensor(served["outs"]["step"][:, :1]).to(dev)
@@ -2695,6 +2748,7 @@ def prefix_decode_check(check, report, served):
                      "pos_after_prefill": pos, "pos_after_decode": after}
         del dec, full, d
         torch.cuda.empty_cache()
+    narrow_serving_weights(model, cfg)
     r32 = rows["float32"]
     check(r32["finite"] and r32["rel_l2"] <= DECODE_TOL,
           f"{cfg.name}: the f32 decode step after the prefix is {r32} from "
@@ -2734,7 +2788,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     from repro_torch.data import DataConfig, SyntheticStream
     from repro_torch.kernels import build
     from repro_torch.models import CallConfig, init_params, prefill
-    from repro_torch.models.model import prefix_tokens
+    from repro_torch.models.model import narrow_serving_weights, prefix_tokens
     from repro_torch.serve import ServeConfig, ServeEngine
     from repro_torch.serve.engine import build_sampling_step
 
@@ -2802,6 +2856,7 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
         raised = True
     check(raised, f"generate_many did not raise for the {cfg.family} "
                   f"family")
+    narrowed = print_narrowed(stats)
     for mode in outs:
         print(f"  generate {mode:5s}: batch {st['batch']} x "
               f"{st['prompt_len']} prompt tokens, {st['new_tokens']} new: "
@@ -2821,8 +2876,14 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
     calls = {impl: CallConfig(ssm_impl=impl, attn_impl=impl,
                               moe_no_drop=True)
              for impl in (("kernel", "plain") if kernels else ("auto",))}
-    prefill_cmp = (prefill_vs_plain(check, cfg, model, batch, max_len)
-                   if kernels else {})
+    prefill_cmp = {}
+    if kernels:
+        # on the seed's float32 weights, drawn again where the engines
+        # narrowed them; narrowed again after, as served
+        del eng, model
+        model = seed_model(cfg)
+        prefill_cmp = prefill_vs_plain(check, cfg, model, batch, max_len)
+        narrow_serving_weights(model, cfg)
 
     def prefill_s(impl):
         torch.cuda.synchronize()
@@ -2882,7 +2943,8 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
                           for k, us, c in b["top"]), flush=True)
     report[key] = {
         "arch": cfg.name, "n_params": got_params, "param_bytes": param_bytes,
-        "init_s": init_s, "static": st, "wall_s": wall,
+        "narrowed_bytes": narrowed, "init_s": init_s, "static": st,
+        "wall_s": wall,
         "stats": stats, "prefill_ms": prefill_ms, "prefill_runs_s": runs,
         "decode_ms_per_step": decode_ms, "prefill_logits": prefill_cmp,
         "busy": busy, "max_memory_allocated": peak, "launches": launches,
@@ -2897,9 +2959,9 @@ def serve_state_model(check, report, cfg, st, *, key, n_params, per_prefill,
 
 def prefill_vs_plain(check, cfg, model, batch, max_len):
     """The last-position prefill logits of ``batch`` with the kernels
-    against the plain versions, in bf16 and in f32 compute (the same f32
-    weights), within ``PREFILL_TOL``; routing without drops, as the
-    engine's prefill routes.  Returns the errors by compute dtype."""
+    against the plain versions, in bf16 and in f32 compute (both over
+    ``model``'s f32 weights), within ``PREFILL_TOL``; routing without
+    drops, as the engine's prefill routes.  Returns the errors by compute dtype."""
     import torch
     from repro_torch.models import CallConfig, prefill
 
@@ -3882,8 +3944,8 @@ def graphs_phase(check, report, served):
        ``GRAPH_STEPS`` steps a pass; the device busy share of each
        (``torch.profiler``); capture seconds, the graphs' pool bytes and
        their nodes (read from libcuda); the bytes a step must move
-       (every weight it reads once, the cache once) over 3.35 TB/s, and
-       the same with the per-use casts' bf16 copies written and read."""
+       (every weight it reads once, in the dtype the engine adopted it
+       in, the cache once) over 3.35 TB/s."""
     import numpy as np
     import torch
     from repro_torch.core import graphs
@@ -3986,21 +4048,14 @@ def graphs_phase(check, report, served):
               "chunk graph": graphs.census(g_chunk)}
     cache_bytes = sum(t.numel() * t.element_size() for t in init_cache(
         cfg, b, max_len, device="meta").values())
-    # every weight a step reads, once: all but the embedding table's
-    # unread rows (a tied table is the head, read whole)
+    # every weight a step reads, once, as the engines adopted it (the
+    # narrowed leaves in bf16): all but the embedding table's unread rows
+    # (a tied table is the head, read whole)
+    adopted = sum(p.numel() * p.element_size() for p in model.parameters())
     unread = (0 if cfg.tie_embeddings else
               (cfg.vocab_size - b) * cfg.d_model * model.embed.element_size())
-    read_bytes = served["param_bytes"] - unread + cache_bytes
+    read_bytes = adopted - unread + cache_bytes
     bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
-    # with the per-use casts: each matrix a step casts is also written and
-    # read again in the compute dtype (2 + 2 bytes an element); the f32
-    # router is used as it is, the embedding gathered (a tied one is the
-    # head, cast whole)
-    cast_bytes = sum(
-        p.numel() * 2 * 2 for name, p in model.named_parameters()
-        if p.ndim >= 2 and not name.endswith("router")
-        and (name != "embed" or cfg.tie_embeddings))
-    casts_ms = (read_bytes + cast_bytes) / HBM_BYTES_PER_S * 1e3
     out.update({"tokens_equal": True, "decode_ms_per_step": ms,
                 "runs_ms": runs, "busy": busy, "census": census,
                 "capture_s": {"step graph": g_step.capture_s,
@@ -4008,9 +4063,8 @@ def graphs_phase(check, report, served):
                 "pool_bytes": {"step graph": g_step.pool_bytes,
                                "chunk graph": g_chunk.pool_bytes},
                 "bound_ms": bound_ms, "read_bytes": read_bytes,
-                "bound_with_casts_ms": casts_ms, "cast_bytes": cast_bytes,
                 "max_len": max_len, "param_bytes": served["param_bytes"],
-                "cache_bytes": cache_bytes})
+                "adopted_bytes": adopted, "cache_bytes": cache_bytes})
     for k in sides:
         bz = busy[k]
         print(f"  decode {k:11s}: {ms[k]:.3f} ms per step (passes "
@@ -4024,11 +4078,11 @@ def graphs_phase(check, report, served):
         g = g_step if k == "step graph" else g_chunk
         print(f"  {k}: capture {g.capture_s:.3f} s, pool {g.pool_bytes} B, "
               f"nodes {census[k]}", flush=True)
-    print(f"  a step must move {read_bytes} B (every f32 weight it reads "
-          f"once, the cache once): {bound_ms:.3f} ms at 3.35 TB/s; with the "
-          f"per-use casts {read_bytes + cast_bytes} B, {casts_ms:.3f} ms; the "
-          f"captured step at {bound_ms / ms['step graph']:.3f} and "
-          f"{casts_ms / ms['step graph']:.3f} of these bounds", flush=True)
+    print(f"  a step must move {read_bytes} B (every weight it reads once, "
+          f"as adopted: {adopted} B of the {served['param_bytes']} B drawn; "
+          f"the cache once): {bound_ms:.3f} ms at 3.35 TB/s; the captured "
+          f"step at {bound_ms / ms['step graph']:.3f} of this bound",
+          flush=True)
     del cache, batch, step_eng, chunk_eng, g_step, g_chunk
     torch.cuda.empty_cache()
 

@@ -146,7 +146,9 @@ class CallConfig:
     # one compute-dtype copy of every f32 layer weight per call (the MoE
     # router too, as in the reference).  Off by default: at full width a
     # copy costs half the weights again (deepseek-v2-lite-16b's 64.84 GB
-    # of f32 would add 32.4 GB of bf16, more than one 80 GB card has left)
+    # of f32 would add 32.4 GB of bf16, more than one 80 GB card has left).
+    # A serving engine on the card narrows its weights once instead
+    # (``narrow_serving_weights``); this copy leaves those leaves as they are
     cast_params_once: bool = False
 
 
@@ -332,6 +334,55 @@ def _tree(module: nn.Module, dtype: Optional[torch.dtype]
     for name, child in module.named_children():
         out[name] = _tree(child, dtype)
     return out
+
+
+#: the leaves every read takes in float32: the norm gains, which
+#: ``layers.rms_norm`` reads (``ln``, ``ln1``, ``ln2``, ``final_norm``,
+#: MLA's ``kv_norm``, Mamba-2's ``norm``), the MoE ``router``
+#: (``moe.moe_block``) and the SSM's ``A_log``, ``D`` and ``dt_bias``
+#: (``ssm``).  Every other leaf is read through a cast to the compute dtype.
+F32_READS = frozenset({"ln", "ln1", "ln2", "final_norm", "kv_norm", "norm",
+                       "router", "A_log", "D", "dt_bias"})
+#: the most :func:`narrow_serving_weights` allocates: one chunk of
+#: compute-dtype values
+NARROW_CHUNK_BYTES = 64 << 20
+
+
+@torch.no_grad()
+def narrow_serving_weights(model: nn.Module, cfg: ModelConfig) -> int:
+    """Narrow ``model``'s float32 leaves to ``cfg.compute_dtype`` in their
+    own storage, once, for serving.  Returns the float32 bytes narrowed.
+
+    Each leaf outside :data:`F32_READS` gets its compute-dtype values
+    written over the front half of its own bytes, front to back in chunks
+    of at most :data:`NARROW_CHUNK_BYTES`.  Element k of the narrow view
+    lies at byte 2k, below float32 element k, so no unread element is
+    overwritten.  The parameter then points at that view: same shape,
+    contiguous strides, same storage.  Every use reads the values its cast
+    made before, without the cast.  A leaf that is not contiguous, or does
+    not start on a 16-byte boundary, is copied (``leaf.to``) instead.
+    Nothing is narrowed, and 0 returned, where the compute dtype is not a
+    16-bit float or no float32 leaf is left to narrow (a second call)."""
+    dt = _dtype(cfg.compute_dtype)
+    if dt not in (torch.bfloat16, torch.float16):
+        return 0
+    chunk = NARROW_CHUNK_BYTES // dt.itemsize
+    narrowed = 0
+    for name, param in model.named_parameters():
+        src = param.data
+        if (src.dtype != torch.float32
+                or name.rsplit(".", 1)[-1] in F32_READS):
+            continue
+        if src.is_contiguous() and src.data_ptr() % 16 == 0:
+            flat = src.view(-1)
+            narrow = flat.view(dt)[:flat.numel()]
+            for k in range(0, flat.numel(), chunk):
+                narrow[k:k + chunk].copy_(flat[k:k + chunk].to(dt))
+            param.data = narrow.view(src.shape)
+        else:
+            param.data = src.to(dt)
+        narrowed += src.numel() * src.element_size()
+    return narrowed
 
 
 class Transformer(nn.Module):

@@ -96,7 +96,7 @@ from repro_torch.core.policy import Staging, TenantKind, coerce_enum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (
     CallConfig, Transformer, decode_step, decode_step_ragged, init_cache,
-    prefill, prefix_tokens,
+    narrow_serving_weights, prefill, prefix_tokens,
 )
 
 
@@ -111,9 +111,10 @@ SERVE_CALL = CallConfig(moe_no_drop=True)
 HOST_NS = ("call_host_ns", "insert_host_ns", "step_host_ns",
            "retire_host_ns", "drain_host_ns")
 #: every counter of ``stats`` the reference's engine does not keep: the
-#: host nanoseconds above, and ``generate``'s prefilled positions and
-#: host nanoseconds
-PORT_COUNTERS = HOST_NS + ("prefill_tokens", "generate_host_ns")
+#: host nanoseconds above, ``generate``'s prefilled positions and host
+#: nanoseconds, and the float32 bytes the engine narrowed on adoption
+PORT_COUNTERS = HOST_NS + ("prefill_tokens", "generate_host_ns",
+                           "narrowed_bytes")
 
 
 def _sampler(temperature: float):
@@ -243,11 +244,19 @@ class ServeEngine:
     """Static-batch decode engine with per-slot generation state.
 
     ``params`` is a :class:`Transformer`.  On the engine's device it is
-    used as it is; elsewhere (host weights) call :meth:`place_params`
+    adopted as it is; elsewhere (host weights) call :meth:`place_params`
     first — it places the weights under ``scfg.staging`` and records the
     link bytes in ``stats``.  ``device=None`` means the card, and raises
     without one.  ``cluster_ids`` is the engine's window of logical
     clusters (global ids; one cluster when omitted).
+
+    An engine on the card owns the model it adopts: it narrows the float32
+    weights that every use casts to a 16-bit compute dtype to that dtype,
+    once, in their own storage (``narrow_serving_weights``; the leaves
+    read in float32 stay), and reads them as such from then on, as does
+    anything else that reads that model.  ``stats["narrowed_bytes"]``
+    counts the float32 bytes narrowed.  On the CPU the weights stay as
+    they are.
     """
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
@@ -276,6 +285,8 @@ class ServeEngine:
                       "requests_retired": 0, "batch_padded_rows": 0,
                       "h2d_bytes": 0, "d2d_bytes": 0,
                       **dict.fromkeys(PORT_COUNTERS, 0)}
+        if params is not None and params.device == self.device:
+            self._adopt(params)
 
     # -- placement (weights + prefill inserts) -------------------------------------
 
@@ -309,19 +320,32 @@ class ServeEngine:
         of a :class:`ServeTenant` share them); others are uploaded once.
         """
         state = params.state_dict()
-        for t in state.values():
-            self._count_replicated(t.numel() * t.element_size())
+        model = Transformer(self.cfg, device="meta")
+        # at each leaf's declared dtype: another engine's adoption may have
+        # narrowed the leaves of a model on the device
+        declared = model.state_dict()
+        for name, t in state.items():
+            self._count_replicated(t.numel()
+                                   * declared[name].element_size())
         # the captured decode programs read the weights they were built on
         self.graphs = graphs.GraphCache(self.device)
-        if params.device == self.device:
-            self.params = params
-            return params
-        model = Transformer(self.cfg, device="meta")
-        model.load_state_dict(
-            {name: bc.upload(t.detach().cpu().numpy(), self.device)
-             for name, t in state.items()}, assign=True)
-        self.params = model
-        return model
+        if params.device != self.device:
+            model.load_state_dict(
+                {name: bc.upload(t.detach().cpu().numpy(), self.device)
+                 for name, t in state.items()}, assign=True)
+            params = model
+        self._adopt(params)
+        return params
+
+    def _adopt(self, params: Transformer) -> None:
+        """Serve from ``params``, on the engine's device: on the card its
+        float32 weights narrowed to the compute dtype first, before any
+        program is captured over them (a second adoption narrows
+        nothing)."""
+        if self._card:
+            self.stats["narrowed_bytes"] += narrow_serving_weights(params,
+                                                                   self.cfg)
+        self.params = params
 
     def _model(self) -> Transformer:
         if self.params.device != self.device:
